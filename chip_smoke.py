@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --phases build parity
+
+Phases, each printing one JSON line (any failure exits nonzero):
+
+  1 build     compile the CUDA kernels from src/repro_torch/kernels/csrc
+              (nvcc, sm_90a) and load them; print the card's name and
+              power limit as nvidia-smi reports them.
+  2 parity    every kernel against its plain PyTorch version on the card,
+              f32 and bf16 (f32: max |d| <= 1e-5 * max(1, |x|_inf), since
+              sums run in another order; bf16: within 1 ulp).
+  3 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
+              K=32 fully connected, d=10, 1 attacker at delta=1000) on the
+              kernel backend: steady MSD < 1e-2; the mean aggregator as the
+              breakdown contrast; the Robust-FedAvg MM setting of
+              examples/federated.py.  The single-pass kernel must launch.
+  4 cohort    the large_cohort family's federated smoke spec (1024 clients
+              at participation 0.5: a 512-agent aggregation).  The
+              two-pass kernel must launch and the MSD stay finite.
+  5 width     K=8 agents' updates shaped like Qwen3-0.6B's parameter tree
+              (14 leaves, 751,894,528 coordinates each), made on the card,
+              one agent shifted by 1000, through AggregationEngine
+              .aggregate_tree: one launch, checked against the plain
+              version over every column, timed with CUDA events.
+  6 batch     one aggregate_batched launch at (K, M, N) = (32, 2^20, 32),
+              the diffusion case, beside its plain version.
+
+Then one {"kernels": [...]} line, the nvidia-smi line, and the final
+{"ok": true, "device": ...} line.  Each entry of the kernels line is one
+main-path run (the paper and federated scenarios, the large cohort, the
+tree launch, the diffusion batch) and its launches are that run's own
+count: every count is set to 0 just before the run and read just after;
+launches made to time a kernel or compare it with its plain version are
+not counted.  bound_ms is the larger of the bytes the function must move
+over 3.35 TB/s and its f32 operations (mm_ops) over 67 TFLOP/s (H100 SXM
+data sheet).  No single PyTorch call computes an MM estimate, so
+library_ms is null.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+PHASES = ("build", "parity", "paper", "cohort", "width", "batch")
+
+# Qwen3-0.6B (configs/qwen3_0p6b.py) parameter tree: leaf shapes
+QWEN3_0P6B_SHAPES = {
+    "blocks": {
+        "attn": {"k_norm": (28, 128), "q_norm": (28, 128),
+                 "wk": (28, 1024, 1024), "wo": (28, 2048, 1024),
+                 "wq": (28, 1024, 2048), "wv": (28, 1024, 1024)},
+        "ln1": (28, 1024), "ln2": (28, 1024),
+        "mlp": {"w_down": (28, 3072, 1024), "w_gate": (28, 1024, 3072),
+                "w_up": (28, 1024, 3072)},
+    },
+    "embed": (152064, 1024),
+    "head": (1024, 152064),
+    "ln_f": (1024,),
+}
+WIDTH_AGENTS = 8
+
+
+def qwen3_shapes():
+    """(leaf shapes in tree order, tree definition) of the table."""
+    from repro_torch import pytree
+    return pytree.flatten(QWEN3_0P6B_SHAPES,
+                          is_leaf=lambda t: isinstance(t, tuple))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def mm_ops(k: int, m: int, n: int, weighted: bool, num_iters: int = 10,
+           sort_rows: int = 0) -> int:
+    """f32 operations the MM estimate needs, an FMA counted as two (as the
+    peak rate counts it).  Per (column, n) and IRLS step, each row takes
+    9: r = x - mu, r * r, 1 - r^2 / (c scale)^2 as one FMA against the
+    folded constant, the clamp at 0, the square, num += w x as an FMA,
+    den += w; weights add one multiply.  Each step adds the divide and
+    the test, and the folded constant costs 3 once.  The start takes 2
+    per row for the deviations and compares of the MAD and, weighted, 2
+    for the cumulative weight and its compare.  Sorting a column costs
+    K log2 K compares (log2 of the sorted block, ``sort_rows``, where
+    the column is sorted in blocks)."""
+    per_row = 9 + int(weighted)
+    start = 2 * k + (2 * k if weighted else 2) + 3
+    sort = k * max(1, math.ceil(math.log2(max(sort_rows or k, 2))))
+    return n * m * (num_iters * (per_row * k + 2) + start) + m * sort
+
+
+def bound(bytes_moved: int, ops: int) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Smoke:
+    def __init__(self, torch, args):
+        self.torch = torch
+        self.args = args
+        self.dev = torch.device("cuda")
+        self.kernels = {}          # entry name -> kernels-line dict
+        self.parity_err = {"single_pass": 0.0, "two_pass": 0.0}
+
+    # -- helpers -----------------------------------------------------------
+
+    def time_ms(self, fn, reps: int = 3, warmup: int = 1) -> tuple:
+        """(median ms over reps, last result), one CUDA-event pair each."""
+        torch = self.torch
+        out = None
+        for _ in range(warmup):
+            out = fn()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), out
+
+    def main_path(self, fn):
+        """Run fn with every launch count set to 0; (result, its counts)."""
+        from repro_torch.kernels import mm_aggregate as mk
+        for key in mk.LAUNCHES:
+            mk.LAUNCHES[key] = 0
+        result = fn()
+        self.torch.cuda.synchronize()
+        return result, dict(mk.LAUNCHES)
+
+    def not_counted(self, fn):
+        """Run fn (a comparison launch) without touching the counts."""
+        from repro_torch.kernels import mm_aggregate as mk
+        saved = dict(mk.LAUNCHES)
+        try:
+            return fn()
+        finally:
+            mk.LAUNCHES.update(saved)
+
+    def measure(self, key, label, x, a, plan, counts, weighted=True):
+        """Time one kernel launch and its plain version on the same
+        inputs, compare them, and record the kernels-line entry with the
+        launches of the main-path run (``counts``) that gave the shape."""
+        from repro_torch.kernels import mm_aggregate as mk
+        two = plan.path == "two_pass"
+        run = mk.two_pass if two else mk.single_pass
+        ms, got = self.not_counted(lambda: self.time_ms(
+            lambda: run(x, a, plan, weighted=weighted)))
+        xp, ap = mk._pad_inputs(x, a, plan=plan)
+        if two:
+            plain = lambda: mk.mm_two_pass_plain(
+                xp, ap, k=x.shape[0], block_k=plan.block_k, weighted=weighted)
+        else:
+            plain = lambda: mk.mm_single_pass_plain(xp, ap, k=x.shape[0],
+                                                    weighted=weighted)
+        pms, want = self.time_ms(plain, reps=1)
+        err = float((got - want[:, :x.shape[1]]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(x.abs().max())), (key, err)
+        t, by = bound(plan.total_bytes,
+                      mm_ops(x.shape[0], x.shape[1], plan.n_out, weighted,
+                             sort_rows=plan.block_k if two else 0))
+        name = "mm_two_pass" if two else "mm_single_pass"
+        self.kernels[key] = dict(
+            name=key, shape=label,
+            launches=counts["two_pass" if two else "single_pass"],
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces="src/repro/kernels/mm_aggregate.py:" +
+                     ("306" if two else "243"),
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=t, bound_by=by,
+            library_ms=None)
+        return self.kernels[key]
+
+    def device_busy_share(self, fn):
+        """Share of fn's wall time the card spent in kernels, from
+        torch.profiler; None where the profiler reports no device time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        except Exception as exc:  # the share is reported, never required
+            print(f"profiler unavailable: {exc!r}", file=sys.stderr)
+            return None
+        busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                      for e in prof.key_averages())
+        return (busy_us * 1e-6 / wall) if busy_us > 0 else None
+
+    # -- phases ------------------------------------------------------------
+
+    def build(self):
+        from repro_torch.kernels import build, mm_aggregate as mk
+        t0 = time.perf_counter()
+        libs = build.load_all()
+        seconds = time.perf_counter() - t0
+        # the launch plan's shared-memory model is what the kernels carve
+        for k, n, bm in ((5, 1, 256), (32, 32, 128), (64, 1, 256)):
+            got = libs["mm_single_pass"].mm_single_pass_smem_bytes(k, n, bm)
+            assert got == mk.single_pass_smem_bytes(k, n, bm), (k, n, bm, got)
+        for k, n, bm, bk, res in ((512, 1, 64, 512, 1), (1024, 1, 32, 512, 1),
+                                  (2048, 1, 32, 512, 0), (300, 3, 32, 512, 1)):
+            got = libs["mm_two_pass"].mm_two_pass_smem_bytes(k, n, bm, bk, res)
+            assert got == mk.two_pass_smem_bytes(k, n, bm, bk, bool(res)), got
+        ptxas = [ln.strip() for ln in build.build_log().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "seconds": seconds,
+              "per_library_s": build.BUILD_SECONDS, "ptxas": ptxas,
+              "gpu": self.torch.cuda.get_device_name(0)})
+        print(nvidia_smi(), flush=True)
+
+    def _parity_case(self, k, m, n, dtype, weighted, path, block_k=None):
+        torch = self.torch
+        from repro_torch.core import location
+        from repro_torch.kernels import mm_aggregate as mk
+        g = torch.Generator(device=self.dev).manual_seed(k * 7919 + m + n)
+        x = torch.randn((k, m), generator=g, device=self.dev)
+        x[k - max(1, k // 5):] += 1000.0            # 20% contamination
+        x = x.to(dtype)
+        if weighted:
+            a = torch.rand((k, n), generator=g, device=self.dev) * 0.9 + 0.1
+            a = location.normalize_weights(a, dtype=torch.float32)
+        else:
+            a = torch.full((k, 1), 1.0 / k, device=self.dev)
+        plan = mk.launch_plan(k, m, n, dtype=dtype, block_k=block_k,
+                              path=path)
+        run = mk.two_pass if path == "two_pass" else mk.single_pass
+        kms, got = self.not_counted(lambda: self.time_ms(
+            lambda: run(x, a, plan, weighted=weighted), reps=1))
+        xp, ap = mk._pad_inputs(x, a, plan=plan)
+        if path == "two_pass":
+            plain = lambda: mk.mm_two_pass_plain(
+                xp, ap, k=k, block_k=plan.block_k, weighted=weighted)
+        else:
+            plain = lambda: mk.mm_single_pass_plain(xp, ap, k=k,
+                                                    weighted=weighted)
+        pms, want = self.time_ms(plain, reps=1, warmup=0)
+        want = want[:, :m]
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(x.float().abs().max()))
+        if dtype == torch.float32:
+            ok = err <= 1e-5 * scale
+        else:
+            bits = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+            close = (got.float() - want.float()).abs() <= 1e-5 * scale
+            ok = bool(((bits <= 1) | close).all())
+        name = "two_pass" if path == "two_pass" else "single_pass"
+        if dtype == torch.float32:
+            self.parity_err[name] = max(self.parity_err[name], err)
+        row = {"phase": "parity", "kernel": name, "k": k, "m": m, "n": n,
+               "dtype": str(dtype).replace("torch.", ""), "weighted": weighted,
+               "block_m": plan.block_m, "block_k": plan.block_k,
+               "tile_resident": plan.tile_resident, "max_abs_err": err,
+               "tol": 1e-5 * scale if dtype == torch.float32 else "1 ulp",
+               "ms": kms, "plain_ms": pms, "ok": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"kernel disagrees with its plain version: {row}")
+
+    def parity(self):
+        torch = self.torch
+        single = ((5, 130, 1, False), (32, 4099, 1, True), (32, 4099, 32, True),
+                  (33, 1000, 5, True), (64, 8192, 1, False))
+        two = ((128, 2049, 1, True, None), (300, 513, 3, True, None),
+               (1024, 4096, 1, False, 512), (96, 777, 2, True, 32),
+               (2048, 1024, 1, True, 512))
+        for dtype in (torch.float32, torch.bfloat16):
+            for k, m, n, w in single:
+                self._parity_case(k, m, n, dtype, w, "single")
+            for k, m, n, w, bk in two:
+                self._parity_case(k, m, n, dtype, w, "two_pass", bk)
+
+    def paper(self):
+        from repro_torch import scenarios
+        from repro_torch.configs import paper_lsq
+
+        def spec(agg, backend):
+            return scenarios.ScenarioSpec(
+                paradigm="diffusion", num_agents=paper_lsq.NUM_AGENTS,
+                dim=paper_lsq.DIM, noise_var=paper_lsq.NOISE_VAR,
+                topology="fully_connected", aggregator=agg, backend=backend,
+                attack="additive", num_malicious=1,
+                attack_kwargs=(("delta", 1000.0),),
+                step_size=paper_lsq.STEP_SIZE, num_steps=500, seed=0,
+                data_seed=0)
+
+        ref, counts = self.main_path(lambda: scenarios.run(spec("mm_tukey",
+                                                                "pallas")))
+        steady = ref.summary["steady_msd"]
+        assert counts["single_pass"] > 0, counts
+        assert steady < 1e-2, steady
+        mean = scenarios.run(spec("mean", "jnp"))
+        fed_spec = scenarios.ScenarioSpec(
+            paradigm="federated", num_agents=32, participation=0.5,
+            local_steps=5, dim=10, noise_var=0.01, step_size=0.05,
+            num_steps=300, attack="additive",
+            attack_kwargs=(("delta", 1000.0),), aggregator="mm_tukey",
+            num_malicious=6, backend="pallas")
+        fed, fcounts = self.main_path(lambda: scenarios.run(fed_spec))
+        assert fcounts["single_pass"] > 0 and fed.finite(), fcounts
+        # one diffusion step's launch: (K, M, N) = (32, 10, 32)
+        from repro_torch.core import location
+        from repro_torch.kernels import mm_aggregate as mk
+        g = self.torch.Generator(device=self.dev).manual_seed(2)
+        x = self.torch.randn((32, 10), generator=g, device=self.dev)
+        x[31] += 1000.0
+        a = location.normalize_weights(
+            self.torch.ones((32, 32), device=self.dev))
+        step = self.measure("mm_single_pass (paper diffusion step)",
+                            "K=32 M=10 N=32 f32", x, a,
+                            mk.launch_plan(32, 10, 32), counts)
+        # one federated round's launch: the cohort, unweighted
+        kc = fed_spec.clients_per_round()
+        xc = self.torch.randn((kc, 10), generator=g, device=self.dev)
+        xc[kc - 3:] += 1000.0
+        self.measure("mm_single_pass (federated round)",
+                     f"K={kc} M=10 N=1 f32", xc,
+                     self.torch.full((kc, 1), 1.0 / kc, device=self.dev),
+                     mk.launch_plan(kc, 10, 1), fcounts, weighted=False)
+        busy = self.not_counted(lambda: self.device_busy_share(
+            lambda: scenarios.run(spec("mm_tukey", "pallas"))))
+        emit({"phase": "paper", "ref_steady_msd": steady,
+              "step_launch_ms": step["ms"], "ref_device_busy_share": busy,
+              "ref_launches": counts, "ref_compile_s": ref.compile_s,
+              "ref_wall_s": ref.wall_clock_s,
+              "mean_steady_msd": mean.summary["steady_msd"],
+              "mean_broke_down": mean.summary["broke_down"],
+              "fed_mm_msd_at_50": float(fed.history["msd"][49]),
+              "fed_mm_final_msd": fed.final_msd, "fed_launches": fcounts,
+              "fed_wall_s": fed.wall_clock_s})
+
+    def cohort(self):
+        from repro_torch import scenarios
+        sp = scenarios.ScenarioSpec(
+            paradigm="federated", aggregator="mm_tukey", backend="pallas",
+            attack="additive", num_agents=1024, dim=256, num_steps=3,
+            num_malicious=128, participation=0.5, seed=0)
+        res, counts = self.main_path(lambda: scenarios.run(sp))
+        assert counts["two_pass"] > 0, counts
+        assert res.finite(), res.history
+        audit = res.launch_audit
+        x = self.torch.randn((512, 256), device=self.dev)
+        x[448:] += 1000.0
+        a = self.torch.full((512, 1), 1.0 / 512, device=self.dev)
+        from repro_torch.kernels import mm_aggregate as mk
+        plan = mk.launch_plan(512, 256, 1, block_m=audit["block_m"],
+                              block_k=audit["block_k"], path="two_pass")
+        entry = self.measure("mm_two_pass", "K=512 M=256 N=1 f32 "
+                             "(large_cohort)", x, a, plan, counts,
+                             weighted=False)
+        ms, pms, err = entry["ms"], entry["plain_ms"], entry["max_abs_err"]
+        emit({"phase": "cohort", "msd": [float(v) for v in res.history["msd"]],
+              "launches": counts, "audit": audit, "ms": ms, "plain_ms": pms,
+              "max_abs_err": err})
+
+    def width(self):
+        torch = self.torch
+        from repro_torch import pytree
+        from repro_torch.kernels import mm_aggregate as mk, ops
+        leaves_shapes, treedef = qwen3_shapes()
+        k = WIDTH_AGENTS
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        leaves = []
+        for shape in leaves_shapes:
+            leaf = torch.randn((k,) + tuple(shape), generator=g,
+                               device=self.dev)
+            leaf[k - 1] += 1000.0                # one byzantine agent
+            leaves.append(leaf)
+        tree = pytree.unflatten(treedef, leaves)
+        m_total = sum(math.prod(s) for s in leaves_shapes)
+        engine = ops.AggregationEngine()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, counts = self.main_path(lambda: engine.aggregate_tree(tree))
+        tree_ms = (time.perf_counter() - t0) * 1e3  # stage + launch + split
+        peak = torch.cuda.max_memory_allocated()
+        assert counts == {"single_pass": 1, "two_pass": 0}, counts
+        uniform = torch.full((k, 1), 1.0 / k, device=self.dev)
+
+        def plain(x):
+            return mk.mm_single_pass_plain(x.contiguous(), uniform, k=k,
+                                           weighted=False)[0]
+
+        windows = {}
+        # the first 2^20 coordinates of embed, 2^20 from the middle of
+        # w_down (layer 14 of 28), all of ln_f
+        checks = (("embed", ("embed",), 0, 2 ** 20),
+                  ("blocks.mlp.w_down", ("blocks", "mlp", "w_down"), 0.5,
+                   2 ** 20),
+                  ("ln_f", ("ln_f",), 0, None))
+        for label, path, start, width in checks:
+            src, got = tree, out
+            for p in path:
+                src, got = src[p], got[p]
+            lo = int(start * got.numel())
+            sl = slice(lo, None if width is None else lo + width)
+            want = plain(src.reshape(k, -1)[:, sl])
+            err = float((got.reshape(-1)[sl] - want).abs().max())
+            assert bool(torch.isfinite(got).all()), label
+            assert err <= 1e-5 * 1001.0, (label, err)
+            windows[label] = err
+        del out, tree
+        buf = ops.stage_leaves(leaves)
+        del leaves
+        plan = mk.launch_plan(k, m_total, 1)
+        ms, est = self.not_counted(lambda: self.time_ms(
+            lambda: mk.single_pass(buf, uniform, plan, weighted=False)[0]))
+        # the plain version over every column, in chunks it can hold
+        chunk = 2 ** 24
+        err, plain_ms = 0.0, 0.0
+        for lo in range(0, m_total, chunk):
+            x = buf[:, lo:lo + chunk]
+            t, want = self.time_ms(lambda: plain(x), reps=1, warmup=0)
+            plain_ms += t
+            err = max(err, float((est[lo:lo + chunk] - want).abs().max()))
+        assert err <= 1e-5 * 1001.0, err
+        gbs = plan.total_bytes / (ms * 1e-3) / 1e9
+        t_bytes = plan.total_bytes / HBM_BYTES_PER_S * 1e3
+        t, by = bound(plan.total_bytes, mm_ops(k, m_total, 1, False))
+        self.kernels["mm_single_pass"] = dict(
+            name="mm_single_pass",
+            shape=f"K={k} M={m_total} N=1 f32 (Qwen3-0.6B tree)",
+            launches=counts["single_pass"],
+            source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
+            replaces="src/repro/kernels/mm_aggregate.py:243", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
+            library_ms=None)
+        emit({"phase": "width", "leaves": len(leaves_shapes),
+              "m_total": m_total, "launches": counts, "window_err": windows,
+              "max_abs_err_all_columns": err, "tree_ms": tree_ms, "ms": ms,
+              "plain_ms": plain_ms,
+              "total_bytes": plan.total_bytes, "gb_per_s": gbs,
+              "hbm_bound_ms": t_bytes, "hbm_bound_share": t_bytes / ms,
+              "bound_ms": t, "bound_by": by, "block_m": plan.block_m,
+              "max_memory_allocated": peak})
+
+    def batch(self):
+        torch = self.torch
+        from repro_torch.core import location
+        from repro_torch.kernels import mm_aggregate as mk, ops
+        k, m, n = 32, 2 ** 20, 32
+        g = torch.Generator(device=self.dev).manual_seed(1)
+        x = torch.randn((k, m), generator=g, device=self.dev)
+        x[k - 1] += 1000.0
+        a = location.normalize_weights(
+            torch.rand((k, n), generator=g, device=self.dev) + 0.1)
+        # the engine's batched entry point, as diffusion_step calls it
+        out, counts = self.main_path(
+            lambda: ops.AggregationEngine().aggregate_batched(x, a))
+        assert counts == {"single_pass": 1, "two_pass": 0}, counts
+        assert out.shape == (n, m) and bool(torch.isfinite(out).all())
+        del out
+        plan = mk.launch_plan(k, m, n)
+        entry = self.measure("mm_single_pass (diffusion batch)",
+                             f"K={k} M={m} N={n} f32", x, a, plan, counts)
+        ms, pms, err = entry["ms"], entry["plain_ms"], entry["max_abs_err"]
+        t, by = entry["bound_ms"], entry["bound_by"]
+        emit({"phase": "batch", "k": k, "m": m, "n": n, "ms": ms,
+              "plain_ms": pms, "max_abs_err": err, "bound_ms": t,
+              "bound_by": by, "block_m": plan.block_m,
+              "total_bytes": plan.total_bytes, "launches": counts})
+
+    def kernels_line(self) -> None:
+        rows = []
+        for entry in self.kernels.values():
+            kernel = "two_pass" if "two_pass" in entry["name"] else "single_pass"
+            assert entry["launches"] > 0, entry
+            rows.append(dict(entry, route="cuda",
+                             parity_max_abs_err=self.parity_err[kernel]))
+        print(json.dumps({"kernels": rows}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", nargs="+", choices=PHASES, default=PHASES)
+    args = ap.parse_args(argv)
+    if not (HERE / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository "
+              "(src/repro_torch not found beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py drives the port on a GPU",
+              file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke(torch, args)
+    for phase in PHASES:
+        if phase in args.phases:
+            getattr(smoke, phase)()
+    smoke.kernels_line()
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

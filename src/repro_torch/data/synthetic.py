@@ -1,0 +1,143 @@
+"""Synthetic data for the paper's linear-model experiment (Sec. 4).
+
+Counterpart of the linear-model half of ``repro.data.synthetic`` (the
+token streams wait for the LM slice).  Per-agent streaming regression
+pairs d_k = u_k^T w_o + v_k with u_k ~ N(0, I_M), v_k ~ N(0, sigma_v^2)
+and the LMS gradient approximation (Eq. 33).
+
+The problem instance (``w_star``, the Dirichlet mixtures) is made with
+the same numpy calls as the reference, so it is bit-identical.  The
+per-step samples come from an explicit ``torch.Generator``; they differ
+from the reference's ``jax.random`` stream.
+
+Heterogeneity: regressors come from a mixture of ``num_components``
+diagonal families (per-component std ``scales``) and each agent draws
+components with its own weights pi_k ~ Dirichlet(alpha * 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import devices
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearModelProblem:
+    """Streaming least-mean-squares problem shared by K agents."""
+
+    dim: int = 10
+    noise_var: float = 0.01
+    seed: int = 0
+
+    @property
+    def w_star_np(self) -> np.ndarray:
+        rng = np.random.default_rng(self.seed)
+        w = rng.normal(size=(self.dim,))
+        return (w / np.linalg.norm(w)).astype(np.float32)
+
+    def w_star(self, device="cuda") -> torch.Tensor:
+        """The normalized target model, float32 on ``device``."""
+        return torch.from_numpy(self.w_star_np).to(devices.resolve(device))
+
+
+def dirichlet_mixture(k_agents: int, alpha: float, num_components: int = 4,
+                      seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-agent mixture weights (K, F) and per-component input stds (F,)."""
+    if alpha <= 0:
+        raise ValueError(f"dirichlet alpha must be > 0, got {alpha}")
+    rng = np.random.default_rng(seed)
+    pi = rng.dirichlet(alpha * np.ones(num_components), size=k_agents)
+    scales = np.logspace(-0.5, 0.5, num_components)
+    return pi, scales
+
+
+def _mixture(k_agents, data, alpha, num_components, seed, device):
+    if data not in ("iid", "dirichlet"):
+        raise ValueError(f"unknown data split {data!r}")
+    if data == "iid":
+        return None
+    pi, scales = dirichlet_mixture(k_agents, alpha, num_components, seed)
+    return (torch.as_tensor(pi, dtype=torch.float32, device=device),
+            torch.as_tensor(scales, dtype=torch.float32, device=device))
+
+
+def _regressors(mix, idx, rows, dim, gen, dtype, device):
+    """(rows, dim) regressors; under a Dirichlet split each row's scale
+    comes from its agent's mixture component."""
+    u = torch.randn((rows, dim), generator=gen, dtype=dtype, device=device)
+    if mix is None:
+        return u
+    pi, scales = mix
+    comp = torch.multinomial(pi[idx], 1, generator=gen)[:, 0]
+    return u * scales[comp].to(dtype)[:, None]
+
+
+def make_stacked_grad_fn(problem: LinearModelProblem, k_agents: int, *,
+                         data: str = "iid", alpha: float = 1.0,
+                         num_components: int = 4, seed: int = 0,
+                         device="cuda"):
+    """Stacked grad fn (W (K, M), gen) -> (K, M) for diffusion."""
+    loss_grad = make_stacked_loss_grad_fn(
+        problem, k_agents, data=data, alpha=alpha,
+        num_components=num_components, seed=seed, device=device)
+
+    def grad(w_stack: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        return loss_grad(w_stack, gen)[1]
+
+    return grad
+
+
+def make_stacked_loss_grad_fn(problem: LinearModelProblem, k_agents: int, *,
+                              data: str = "iid", alpha: float = 1.0,
+                              num_components: int = 4, seed: int = 0,
+                              device="cuda"):
+    """Like ``make_stacked_grad_fn`` but also returns the per-agent
+    streaming losses 0.5 * (d_k - u_k^T w_k)^2, whose gradient is the LMS
+    gradient: (W (K, M), gen) -> ((K,), (K, M))."""
+    device = devices.resolve(device)
+    mix = _mixture(k_agents, data, alpha, num_components, seed, device)
+    w_star = problem.w_star(device)
+    sigma_v = float(np.sqrt(problem.noise_var))
+
+    def loss_grad(w_stack: torch.Tensor, gen: torch.Generator):
+        k = w_stack.shape[0]
+        idx = torch.arange(k, device=w_stack.device)
+        u = _regressors(mix, idx, k, problem.dim, gen, w_stack.dtype,
+                        w_stack.device)
+        v = sigma_v * torch.randn((k,), generator=gen, dtype=w_stack.dtype,
+                                  device=w_stack.device)
+        err = u @ w_star + v - torch.sum(u * w_stack, dim=1)
+        return 0.5 * err ** 2, -u * err[:, None]
+
+    return loss_grad
+
+
+def make_client_grad_fn(problem: LinearModelProblem, k_agents: int, *,
+                        data: str = "iid", alpha: float = 1.0,
+                        num_components: int = 4, seed: int = 0,
+                        device="cuda"):
+    """Cohort grad fn (W (N, M), client_idx (N,), gen) -> (N, M) for
+    federated rounds: one fresh sample per sampled client, drawn with
+    the client's own mixture component under a Dirichlet split.  The
+    reference's per-client function, with the cohort written out as a
+    batch axis."""
+    device = devices.resolve(device)
+    mix = _mixture(k_agents, data, alpha, num_components, seed, device)
+    w_star = problem.w_star(device)
+    sigma_v = float(np.sqrt(problem.noise_var))
+
+    def grad(w: torch.Tensor, idx: torch.Tensor,
+             gen: torch.Generator) -> torch.Tensor:
+        n = w.shape[0]
+        u = _regressors(mix, idx, n, problem.dim, gen, w.dtype, w.device)
+        v = sigma_v * torch.randn((n,), generator=gen, dtype=w.dtype,
+                                  device=w.device)
+        d = u @ w_star + v
+        return -u * (d - torch.sum(u * w, dim=1))[:, None]
+
+    return grad

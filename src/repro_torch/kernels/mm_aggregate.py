@@ -1,0 +1,488 @@
+"""Fused elementwise (weighted, batched) MM aggregation on Hopper.
+
+Counterpart of ``repro.kernels.mm_aggregate``.  Per model coordinate m
+and combination weights a (Eq. 10/13; uniform a recovers Eq. 8):
+
+    med   = wmedian_k(phi[k, m]; a)                   (robust init)
+    s     = 1.4826 * median_k |phi[k, m] - med|       (MAD scale)
+    mu_0  = med
+    T x:  b_k = tukey_w((phi[k,m] - mu_t) / (c*s))
+          mu_{t+1} = sum a_k b_k phi / sum a_k b_k
+
+Two hand-written CUDA kernels compute it (``csrc/``): the single-pass
+kernel, which holds a block's whole (K, bm) tile in shared memory, and
+the two-pass K-major kernel for large cohorts, which sorts bk-row blocks
+and combines their statistics.  Each sits behind a wrapper here
+(``single_pass``, ``two_pass``) that launches it for a CUDA tensor and
+counts the launch in ``LAUNCHES``; for a CPU tensor the wrapper runs the
+plain PyTorch version beside it (``mm_single_pass_plain``,
+``mm_two_pass_plain``), which repeats the TPU kernel's arithmetic on the
+padded operands: the sorted-order f32 cumulative weights, the crossing
+with no epsilon, the rank midpoints, and the per-block approximation.
+
+``launch_plan`` is the single source of truth for a launch's geometry,
+its modeled HBM traffic and the shared memory a block carves, against
+Hopper's 227 KB (232,448 B) per block.  The path crossover follows from
+that limit: the single-pass kernel needs its whole (K, bm) tile plus a
+row index per element at a tile of at least ``SINGLE_PASS_MIN_BLOCK_M``
+columns (its median, MAD and IRLS run one thread per (column, n) pair,
+so a narrower tile leaves most of a block's threads idle), and a mesh of
+at least 65 agents whose single-pass tile does not fit takes the
+two-pass kernel, whose sort threads own (column, row) pairs and do well
+at narrow tiles.  At N = 1 the crossover sits at K ~ 300.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import location, mestimators
+from repro_torch.kernels import build
+
+SMEM_BUDGET_BYTES = 232_448      # shared memory one Hopper block may use
+_MIN_BLOCK_M = 32                # one warp of columns: coalesced row reads
+_MAX_BLOCK_M = 256
+SINGLE_PASS_MIN_BLOCK_M = 128
+_SCALE_FLOOR = 1e-12
+_MAD_CONSISTENCY = 1.4826022185056018
+
+PATHS = ("single", "two_pass")
+_TWO_PASS_MIN_K = 65
+# largest K block the two-pass path sorts at once (more K -> several
+# blocks -> the approximate median-of-medians init, as in the reference)
+_MAX_BLOCK_K2 = 512
+
+# kernel launches made by the wrappers below, for CUDA tensors only
+LAUNCHES = {"single_pass": 0, "two_pass": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _as_dtype(dtype) -> torch.dtype:
+    return _DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (>= 2)."""
+    p = 2
+    while p < n:
+        p *= 2
+    return p
+
+
+class LaunchPlan(NamedTuple):
+    """Static geometry + modeled HBM traffic of one batched launch.
+
+    ``grid`` is (column tiles, K blocks); the kernel grid is the first
+    entry, the K blocks are a loop inside each block.  Traffic counts
+    what the kernel moves: each x element once (plus one re-read per IRLS
+    step when the two-pass tile cannot stay resident), the weights, and
+    the (N, M) output; it does not depend on ``n_out``.  ``n_chunk`` is
+    ``n_out``: a block's threads cover every (column, n) pair at once.
+    """
+    grid: Tuple[int, int]
+    block_m: int
+    block_k: int
+    k_pad: int
+    m_total: int
+    n_out: int
+    input_block_fetches: int
+    input_bytes: int
+    weight_bytes: int
+    output_bytes: int
+    path: str = "single"
+    n_chunk: int = 1
+    num_k_blocks: int = 1
+    stats_bytes: int = 0      # shared-memory pass-1 stats, never in HBM
+    smem_bytes: int = 0       # shared memory one block carves
+    tile_resident: bool = True
+
+    @property
+    def total_bytes(self) -> int:
+        """Total modeled HBM traffic of one launch."""
+        return self.input_bytes + self.weight_bytes + self.output_bytes
+
+
+def single_pass_smem_bytes(k: int, n: int, block_m: int) -> int:
+    """Shared memory of the single-pass kernel: the (K, bm) f32 tile, the
+    (K, N) weight tile and the (K, bm) uint16 row-index tile (the C
+    function ``mm_single_pass_smem_bytes`` computes the same)."""
+    return 4 * k * block_m + 4 * k * n + 2 * k * block_m
+
+
+def two_pass_smem_bytes(k: int, n: int, block_m: int, block_k: int,
+                        resident: bool = True) -> int:
+    """Shared memory of the two-pass kernel: the (K_pad | bk, bm) tile,
+    the (K_pad, N) weights, (KB, N) masses, (KB, N, bm) x 2 stats and the
+    (bk, bm) uint16 row index (C: ``mm_two_pass_smem_bytes``)."""
+    kb = -(-k // block_k)
+    k_pad = kb * block_k
+    rows = k_pad if resident else block_k
+    return (4 * (rows * block_m + k_pad * n + kb * n + 2 * kb * n * block_m)
+            + 2 * block_k * block_m)
+
+
+def two_pass_block_k(k: int) -> int:
+    """Default K block: one power-of-two block over the whole axis while
+    it has <= 512 rows (exact), else 512-row blocks (approximate init)."""
+    return min(next_pow2(max(int(k), 2)), _MAX_BLOCK_K2)
+
+
+def auto_path(k: int, n: int) -> str:
+    """Two-pass iff the mesh has >= 65 agents and the single-pass tile
+    does not fit a block's shared memory at ``SINGLE_PASS_MIN_BLOCK_M``
+    columns.  It depends on (K, N) only, so M never flips the path."""
+    if int(k) >= _TWO_PASS_MIN_K and single_pass_smem_bytes(
+            k, n, SINGLE_PASS_MIN_BLOCK_M) > SMEM_BUDGET_BYTES:
+        return "two_pass"
+    return "single"
+
+
+def launch_plan(k: int, m: int, n: int = 1, *,
+                dtype=torch.float32,
+                block_m: Optional[int] = None,
+                block_k: Optional[int] = None,
+                path: Optional[str] = None,
+                num_iters: int = 10) -> LaunchPlan:
+    """Resolve the kernel path + tile sizes (via kernels.tuning when
+    unset) and derive the grid, modeled HBM traffic and shared memory of
+    a (K, M) x (K, N) launch.  ``path=None`` takes the cached tuning
+    choice when it names a path, else ``auto_path``.  The single-pass
+    kernel loads all K rows as one block, so ``block_k`` applies to the
+    two-pass path only."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"unknown kernel path {path!r}; known: {PATHS}")
+    dtype = _as_dtype(dtype)
+    if block_m is None or block_k is None or path is None:
+        from repro_torch.kernels import tuning  # deferred: tuning sizes plans
+        choice = tuning.get_choice(k, m, n=n, dtype=dtype)
+        if block_m is None:
+            block_m = choice.block_m
+        if path is None:
+            path = choice.path
+        if block_k is None and (choice.path or "single") == \
+                (path or auto_path(k, n)):
+            block_k = choice.block_k
+    if path is None:
+        path = auto_path(k, n)
+    if block_m < 1:
+        raise ValueError(f"block_m must be positive, got {block_m}")
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    m_total = m + ((-m) % block_m)
+    tiles = m_total // block_m
+    weight_bytes = k * n * 4
+    output_bytes = n * m * itemsize
+
+    if path == "two_pass":
+        bk = two_pass_block_k(k) if block_k is None else int(block_k)
+        if bk < 2 or bk & (bk - 1):
+            raise ValueError(
+                f"two-pass block_k must be a power of two >= 2, got {bk}")
+        kb = -(-k // bk)
+        resident = two_pass_smem_bytes(k, n, block_m, bk, True) \
+            <= SMEM_BUDGET_BYTES
+        passes = 1 if resident else 1 + num_iters
+        return LaunchPlan(
+            grid=(tiles, kb), block_m=block_m, block_k=bk, k_pad=kb * bk,
+            m_total=m_total, n_out=n,
+            input_block_fetches=tiles * kb * passes,
+            input_bytes=k * m * itemsize * passes,
+            weight_bytes=weight_bytes, output_bytes=output_bytes,
+            path=path, n_chunk=n, num_k_blocks=kb,
+            stats_bytes=2 * kb * n * block_m * 4,
+            smem_bytes=two_pass_smem_bytes(k, n, block_m, bk, resident),
+            tile_resident=resident,
+        )
+
+    return LaunchPlan(
+        grid=(tiles, 1), block_m=block_m, block_k=k, k_pad=k,
+        m_total=m_total, n_out=n,
+        input_block_fetches=tiles,
+        input_bytes=k * m * itemsize,
+        weight_bytes=weight_bytes, output_bytes=output_bytes,
+        path=path, n_chunk=n, num_k_blocks=1,
+        stats_bytes=0,
+        smem_bytes=single_pass_smem_bytes(k, n, block_m),
+    )
+
+
+def _pad_inputs(x: torch.Tensor, a: torch.Tensor, *, plan: LaunchPlan
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad (K, M) values and (K, N) weights to the plan's geometry, as
+    the reference lays them out for its kernel: K to ``plan.k_pad`` with
+    +inf rows of weight 0, M to ``plan.m_total`` with ZERO columns (+inf
+    columns would give inf - inf = NaN in the MAD).  The plain versions
+    read these; the CUDA kernels mask the ragged edge themselves, so a
+    multi-GB input is never copied to pad it."""
+    k, m = x.shape
+    xp = x
+    if plan.k_pad != k:
+        xp = torch.cat([xp, torch.full((plan.k_pad - k, m), float("inf"),
+                                       dtype=x.dtype, device=x.device)])
+    if plan.m_total != m:
+        xp = torch.cat([xp, torch.zeros((plan.k_pad, plan.m_total - m),
+                                        dtype=x.dtype, device=x.device)], 1)
+    ap = a.to(torch.float32)
+    if plan.k_pad != k:
+        ap = torch.cat([ap, torch.zeros((plan.k_pad - k, ap.shape[1]),
+                                        dtype=torch.float32, device=a.device)])
+    return xp, ap
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the two kernels
+# ---------------------------------------------------------------------------
+
+def _gather_rows(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Weights a (R, N) permuted per column by order (R, M) -> (R, N, M)."""
+    return a[order].permute(0, 2, 1)
+
+
+def _crossing(xs: torch.Tensor, ws: torch.Tensor, half) -> torch.Tensor:
+    """Value at the first sorted row whose cumulative weight reaches
+    ``half`` while the previous one is below it (no epsilon); 0 where no
+    row crosses.  xs (R, ...) broadcasts against ws (R, N, ...); the
+    cumulative sum runs row by row in f32, the kernels' order."""
+    cw = torch.zeros_like(ws[0])
+    out = torch.zeros_like(ws[0])
+    for j in range(ws.shape[0]):
+        prev = cw
+        cw = cw + ws[j]
+        sel = (cw >= half) & (prev < half)
+        out = torch.where(sel, xs[j].expand_as(out), out)
+    return out
+
+
+def _sequential_sum(ws: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 row by row in f32 (the kernels' order)."""
+    s = torch.zeros_like(ws[0])
+    for j in range(ws.shape[0]):
+        s = s + ws[j]
+    return s
+
+
+def _rank_median(xs: torch.Tensor, cnt: int) -> torch.Tensor:
+    return 0.5 * (xs[(cnt - 1) // 2] + xs[cnt // 2])
+
+
+def _irls(x: torch.Tensor, a: torch.Tensor, mu: torch.Tensor,
+          scale: torch.Tensor, *, num_iters: int, c: float) -> torch.Tensor:
+    """Tukey IRLS from mu (N, M): x (K, M) valid rows, a (K, N)."""
+    c2 = c * c
+    xb = x[:, None, :]
+    aw = a[:, :, None]
+    for _ in range(num_iters):
+        y = (xb - mu[None]) / scale[None]
+        u = torch.clamp(1.0 - (y * y) / c2, 0.0, 1.0)
+        w = aw * (u * u)
+        num = torch.sum(w * xb, dim=0)
+        den = torch.sum(w, dim=0)
+        safe = den > _SCALE_FLOOR
+        mu = torch.where(safe, num / torch.where(safe, den,
+                                                 torch.ones_like(den)), mu)
+    return mu
+
+
+def mm_single_pass_plain(xp: torch.Tensor, ap: torch.Tensor, *, k: int,
+                         num_iters: int = 10,
+                         c: float = mestimators.TUKEY_C95,
+                         weighted: bool = True) -> torch.Tensor:
+    """Plain version of the single-pass kernel on padded operands:
+    (K_pad, M_pad) values, (K_pad, N) normalized weights -> (N, M_pad).
+    Sentinel rows (+inf, weight 0) sort last and never cross, so only
+    the k valid rows are read."""
+    x = xp[:k].to(torch.float32)
+    a = ap[:k].to(torch.float32)
+    order = torch.argsort(x, dim=0, stable=True)
+    xs = torch.take_along_dim(x, order, dim=0)
+    if weighted:
+        med = _crossing(xs[:, None, :], _gather_rows(a, order), 0.5)
+    else:
+        med = _rank_median(xs, k)[None]
+    ds = torch.sort(torch.abs(x[:, None, :] - med[None]), dim=0).values
+    scale = torch.clamp(_MAD_CONSISTENCY * _rank_median(ds, k),
+                        min=_SCALE_FLOOR)
+    mu = _irls(x, a, med.expand_as(scale).clone(), scale,
+               num_iters=num_iters, c=c)
+    return mu.to(xp.dtype)
+
+
+def mm_two_pass_plain(xp: torch.Tensor, ap: torch.Tensor, *, k: int,
+                      block_k: int, num_iters: int = 10,
+                      c: float = mestimators.TUKEY_C95,
+                      weighted: bool = True) -> torch.Tensor:
+    """Plain version of the two-pass kernel on padded operands, with the
+    reference's per-block approximation: block (weighted) medians at
+    half the block mass, block MADs over the block's valid rows, a
+    mass-weighted median of each, then IRLS summed over every row."""
+    x = xp[:k].to(torch.float32)
+    a = ap.to(torch.float32)                       # (K_pad, N), pads 0
+    bk = block_k
+    kb = -(-k // bk)
+    meds, mads, mass = [], [], []
+    for b in range(kb):
+        r0 = b * bk
+        cnt = min(k - r0, bk)
+        xb = x[r0:r0 + cnt]
+        order = torch.argsort(xb, dim=0, stable=True)
+        xs = torch.take_along_dim(xb, order, dim=0)
+        if weighted:
+            ws = _gather_rows(a[r0:r0 + cnt], order)
+            med = _crossing(xs[:, None, :], ws, 0.5 * _sequential_sum(ws))
+        else:
+            med = _rank_median(xs, cnt)[None]
+        ds = torch.sort(torch.abs(xs[:, None, :] - med[None]), dim=0).values
+        meds.append(med)
+        mads.append(_rank_median(ds, cnt))
+        mass.append(_sequential_sum(a[r0:r0 + bk]))
+    mass = torch.stack(mass)                                  # (KB, N)
+    half = (0.5 * _sequential_sum(mass))[:, None]             # (N, 1)
+
+    def combine(stats):
+        st = torch.stack(stats)                               # (KB, N, M)
+        order = torch.argsort(st, dim=0, stable=True)
+        mw = torch.take_along_dim(mass[:, :, None].expand_as(st), order, 0)
+        return _crossing(torch.take_along_dim(st, order, 0), mw, half)
+
+    mu0 = combine(meds)
+    scale = torch.clamp(_MAD_CONSISTENCY * combine(mads), min=_SCALE_FLOOR)
+    mu = _irls(x, a[:k], mu0, scale, num_iters=num_iters, c=c)
+    return mu.to(xp.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
+                         k: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the MM kernels run on CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] != k or x.shape[1] < 1:
+        raise ValueError(f"x must be ({k}, M>=1), got {tuple(x.shape)}")
+    if x.stride(1) != 1 and x.shape[1] > 1:
+        raise ValueError("x rows must be contiguous (stride 1 along M)")
+    if a.dtype != torch.float32 or a.device != x.device or \
+            tuple(a.shape) != (k, plan.n_out) or not a.is_contiguous():
+        raise ValueError(f"a must be a contiguous float32 ({k}, "
+                         f"{plan.n_out}) tensor on {x.device}")
+    if plan.smem_bytes > SMEM_BUDGET_BYTES:
+        raise ValueError(
+            f"{plan.path} plan needs {plan.smem_bytes} B of shared memory "
+            f"per block, over the {SMEM_BUDGET_BYTES} B a block may use")
+
+
+def _launch_args(x, a, out, plan):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return (x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.shape[0],
+            x.shape[1], a.data_ptr(), plan.n_out, out.data_ptr(),
+            plan.block_m), stream
+
+
+def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
+                num_iters: int = 10, c: float = mestimators.TUKEY_C95,
+                weighted: bool = True) -> torch.Tensor:
+    """Single-pass MM aggregation: (K, M) x (K, N) normalized -> (N, M).
+    Launches the CUDA kernel for a CUDA tensor, runs the plain version
+    for a CPU tensor."""
+    k, m = x.shape
+    if x.device.type == "cpu":
+        xp, ap = _pad_inputs(x, a, plan=plan)
+        return mm_single_pass_plain(xp, ap, k=k, num_iters=num_iters, c=c,
+                                    weighted=weighted)[:, :m]
+    _check_cuda_operands(x, a, plan, k)
+    out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
+    args, stream = _launch_args(x, a, out, plan)
+    err = build.library("mm_single_pass").mm_single_pass_launch(
+        *args, num_iters, c * c, int(weighted), stream)
+    if err:
+        raise RuntimeError(f"mm_single_pass launch failed: cudaError {err}")
+    LAUNCHES["single_pass"] += 1
+    return out
+
+
+def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
+             num_iters: int = 10, c: float = mestimators.TUKEY_C95,
+             weighted: bool = True) -> torch.Tensor:
+    """Two-pass K-major MM aggregation, as ``single_pass``."""
+    k, m = x.shape
+    if x.device.type == "cpu":
+        xp, ap = _pad_inputs(x, a, plan=plan)
+        return mm_two_pass_plain(xp, ap, k=k, block_k=plan.block_k,
+                                 num_iters=num_iters, c=c,
+                                 weighted=weighted)[:, :m]
+    _check_cuda_operands(x, a, plan, k)
+    out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
+    args, stream = _launch_args(x, a, out, plan)
+    err = build.library("mm_two_pass").mm_two_pass_launch(
+        *args, plan.block_k, int(plan.tile_resident), num_iters, c * c,
+        int(weighted), stream)
+    if err:
+        raise RuntimeError(f"mm_two_pass launch failed: cudaError {err}")
+    LAUNCHES["two_pass"] += 1
+    return out
+
+
+def _launch(x: torch.Tensor, a: torch.Tensor, *, weighted: bool,
+            num_iters: int, c: float, block_m: Optional[int],
+            block_k: Optional[int], path: Optional[str] = None
+            ) -> torch.Tensor:
+    """(K, M) values x (K, N) weights -> (N, M) through one kernel.
+
+    Weight columns are normalized here (invalid columns become uniform):
+    the kernels select the absolute cumulative-weight-1/2 crossing, so
+    unnormalized weights would be wrong, not just scaled."""
+    k, m = x.shape
+    if weighted:
+        a = location.normalize_weights(a, dtype=torch.float32)
+    a = a.to(device=x.device, dtype=torch.float32).contiguous()
+    plan = launch_plan(k, m, a.shape[1], dtype=x.dtype, block_m=block_m,
+                       block_k=block_k, path=path, num_iters=num_iters)
+    run = two_pass if plan.path == "two_pass" else single_pass
+    return run(x, a, plan, num_iters=num_iters, c=c, weighted=weighted)
+
+
+def mm_aggregate_2d(x: torch.Tensor, a: Optional[torch.Tensor] = None, *,
+                    num_iters: int = 10, c: float = mestimators.TUKEY_C95,
+                    block_m: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    path: Optional[str] = None) -> torch.Tensor:
+    """MM-aggregate a (K, M) tensor along axis 0 -> (M,).  ``a`` is an
+    optional (K,) weight vector, normalized internally."""
+    if x.dim() != 2:
+        raise ValueError(f"mm_aggregate_2d wants (K, M), got {tuple(x.shape)}")
+    k = x.shape[0]
+    if a is None:
+        aw = torch.full((k, 1), 1.0 / k, dtype=torch.float32, device=x.device)
+        weighted = False
+    else:
+        if tuple(a.shape) != (k,):
+            raise ValueError(f"weights must be ({k},), got {tuple(a.shape)}")
+        aw, weighted = a.reshape(k, 1), True
+    return _launch(x, aw, weighted=weighted, num_iters=num_iters, c=c,
+                   block_m=block_m, block_k=block_k, path=path)[0]
+
+
+def mm_aggregate_batched_2d(x: torch.Tensor, a: torch.Tensor, *,
+                            num_iters: int = 10,
+                            c: float = mestimators.TUKEY_C95,
+                            block_m: Optional[int] = None,
+                            block_k: Optional[int] = None,
+                            path: Optional[str] = None) -> torch.Tensor:
+    """(K, M) values x (K, N) weight columns -> (N, M), one launch; the
+    x tile is read from HBM once whatever N is (the diffusion hot path)."""
+    if x.dim() != 2 or a.dim() != 2 or a.shape[0] != x.shape[0]:
+        raise ValueError(f"want x (K, M) and a (K, N), got "
+                         f"{tuple(x.shape)} and {tuple(a.shape)}")
+    return _launch(x, a, weighted=True, num_iters=num_iters, c=c,
+                   block_m=block_m, block_k=block_k, path=path)

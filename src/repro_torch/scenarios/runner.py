@@ -1,0 +1,237 @@
+"""Lower a ``ScenarioSpec`` to one loop and run it (``repro.scenarios.runner``).
+
+Every paradigm contributes an adapter (``registry.register_paradigm``)
+that maps a spec to its initial state and step function; ``run(spec)``
+drives the step function ``spec.num_steps`` times from one
+``torch.Generator`` seeded by ``spec.seed`` (the reference's
+``lax.scan`` over split keys becomes a Python loop), collects the
+uniform per-step metrics on the device and copies them to the host once
+at the end, summarizes attack success, and attaches a launch audit built
+from the kernel workloads the engine resolved
+(``kernels.ops.record_workloads``).
+
+``compile_s`` times the first step, which carries the kernels' build at
+first use and their first launch; ``wall_clock_s`` times the rest.
+
+``sharded`` and ``substrate`` are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch import devices
+from repro_torch.core import diffusion, federated
+from repro_torch.data import synthetic
+from repro_torch.kernels import mm_aggregate, ops
+from repro_torch.scenarios import metrics, registry
+from repro_torch.scenarios.spec import ScenarioResult, ScenarioSpec
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def loop(step_fn, state0, generator: torch.Generator, num_steps: int,
+         *, start: int = 0):
+    """Run ``step_fn(state, generator, i) -> (state, metrics)`` for steps
+    ``start .. num_steps - 1``; returns (final state, {metric: [tensor]})."""
+    state, hist = state0, {}
+    for i in range(start, num_steps):
+        state, m = step_fn(state, generator, i)
+        for name, v in m.items():
+            hist.setdefault(name, []).append(v)
+    return state, hist
+
+
+def _stack(hist) -> dict:
+    return {name: torch.stack(v) for name, v in hist.items()}
+
+
+# ---------------------------------------------------------------------------
+# paradigm step functions
+# ---------------------------------------------------------------------------
+
+def _diffusion_step_fn(grad_fn, comb, config, w_star):
+    def step(w, generator, i):
+        w_next = diffusion.diffusion_step(
+            w, generator, grad_fn=grad_fn, combination=comb, config=config,
+            step=i)
+        # benign set at THIS step (time-varying schedules move it)
+        benign = ~config.byzantine.malicious_mask(w.shape[0], i, w.device)
+        return w_next, {
+            "msd": diffusion.msd(w_next, w_star, benign),
+            "consensus": metrics.consensus_distance(w_next, benign),
+        }
+    return step
+
+
+def _federated_step_fn(grad_fn, config, w_star):
+    def step(w, generator, i):
+        w_next = federated.federated_round(
+            w, generator, grad_fn=grad_fn, config=config, step=i)
+        return w_next, {
+            "msd": metrics.msd_single(w_next, w_star),
+            "consensus": torch.zeros((), dtype=w_next.dtype,
+                                     device=w_next.device),
+        }
+    return step
+
+
+def diffusion_loop(*, grad_fn, combination, config, w_star, num_iters: int,
+                   generator: torch.Generator, w0=None):
+    """The REF-Diffusion loop; returns (final W, {metric: (T,) tensor})."""
+    diffusion.check_compatible(config, combination.cpu().numpy())
+    if w0 is None:
+        w0 = torch.zeros((combination.shape[0], w_star.shape[0]),
+                         dtype=w_star.dtype, device=w_star.device)
+    step = _diffusion_step_fn(grad_fn, combination.to(w0), config, w_star)
+    w, hist = loop(step, w0, generator, num_iters)
+    return w, _stack(hist)
+
+
+def federated_loop(*, grad_fn, config, w_star, num_rounds: int,
+                   generator: torch.Generator, w0=None):
+    """The FedAvg-with-robust-server loop; returns (final w, metrics)."""
+    if w0 is None:
+        w0 = torch.zeros_like(w_star)
+    w, hist = loop(_federated_step_fn(grad_fn, config, w_star), w0,
+                   generator, num_rounds)
+    return w, _stack(hist)
+
+
+# ---------------------------------------------------------------------------
+# spec adapters
+# ---------------------------------------------------------------------------
+
+def _problem(spec: ScenarioSpec) -> synthetic.LinearModelProblem:
+    return synthetic.LinearModelProblem(
+        dim=spec.dim, noise_var=spec.noise_var, seed=spec.data_seed)
+
+
+@registry.register_paradigm("diffusion")
+def _diffusion_adapter(spec: ScenarioSpec, device: torch.device):
+    problem = _problem(spec)
+    grad_fn = synthetic.make_stacked_grad_fn(
+        problem, spec.num_agents, data=spec.data, alpha=spec.dirichlet_alpha,
+        seed=spec.data_seed, device=device)
+    agg_name, _ = spec.resolved_aggregator()
+    config = diffusion.DiffusionConfig(
+        step_size=spec.step_size, aggregator=agg_name,
+        agg_kwargs=spec.agg_kwargs, byzantine=spec.byzantine())
+    comb_np = spec.combination()
+    diffusion.check_compatible(config, comb_np)
+    w_star = problem.w_star(device)
+    w0 = torch.zeros((spec.num_agents, spec.dim), dtype=w_star.dtype,
+                     device=device)
+    comb = torch.as_tensor(comb_np, dtype=w0.dtype, device=device)
+    return registry.Lowering(w0, _diffusion_step_fn(grad_fn, comb, config,
+                                                     w_star))
+
+
+@registry.register_paradigm("federated")
+def _federated_adapter(spec: ScenarioSpec, device: torch.device):
+    problem = _problem(spec)
+    grad_fn = synthetic.make_client_grad_fn(
+        problem, spec.num_agents, data=spec.data, alpha=spec.dirichlet_alpha,
+        seed=spec.data_seed, device=device)
+    agg_name, _ = spec.resolved_aggregator()
+    config = federated.FederatedConfig(
+        num_clients=spec.num_agents,
+        clients_per_round=spec.clients_per_round(),
+        local_steps=spec.local_steps, step_size=spec.step_size,
+        aggregator=agg_name, agg_kwargs=spec.agg_kwargs,
+        byzantine=spec.byzantine())
+    w_star = problem.w_star(device)
+    return registry.Lowering(torch.zeros_like(w_star),
+                             _federated_step_fn(grad_fn, config, w_star))
+
+
+@registry.register_paradigm("sharded")
+def _sharded_adapter(spec: ScenarioSpec, device: torch.device):
+    raise NotImplementedError(
+        "the sharded paradigm (core/sharded.py collectives over "
+        "torch.distributed) is not ported yet: ROADMAP queue 6")
+
+
+@registry.register_paradigm("substrate")
+def _substrate_adapter(spec: ScenarioSpec, device: torch.device):
+    raise NotImplementedError(
+        "the LM-substrate paradigm (models, optimizers, launch steps) is "
+        "not ported yet: ROADMAP queue 8")
+
+
+# ---------------------------------------------------------------------------
+# run
+# ---------------------------------------------------------------------------
+
+def _audit_from_records(records) -> Optional[dict]:
+    """One ``launch_plan`` dict per distinct kernel workload the engine
+    resolved during the run (the plan dict itself for a single one)."""
+    plans = []
+    for r in records:
+        if r["backend"] != "pallas":
+            continue
+        plan = mm_aggregate.launch_plan(
+            r["k"], r["m"], r["n"], dtype=r["dtype"], block_m=r["block_m"],
+            block_k=r["block_k"], path=r["path"])
+        d = plan._asdict()
+        d["grid"] = list(d["grid"])
+        plans.append(d)
+    if not plans:
+        return None
+    if len(plans) == 1:
+        return plans[0]
+    return {"layouts": plans, "n_layouts": len(plans)}
+
+
+def _validated_override(state0: torch.Tensor, w0, spec: ScenarioSpec):
+    w0 = torch.as_tensor(w0)
+    if tuple(w0.shape) != tuple(state0.shape):
+        raise ValueError(
+            f"w0 override has shape {tuple(w0.shape)}, but paradigm "
+            f"{spec.paradigm!r} expects state of shape {tuple(state0.shape)} "
+            f"((K, M) stacked agent models for diffusion, (M,) for federated)")
+    return w0.to(dtype=state0.dtype, device=state0.device)
+
+
+def run(spec: ScenarioSpec, *, w0=None, device="cuda") -> ScenarioResult:
+    """Lower the spec through its paradigm adapter and run it on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    dev = devices.resolve(device)
+    low = registry.get_paradigm(spec.paradigm)(spec, dev)
+    state = low.state0 if w0 is None else _validated_override(low.state0, w0,
+                                                               spec)
+    generator = torch.Generator(device=dev).manual_seed(spec.seed)
+
+    with ops.record_workloads() as records:
+        t0 = time.perf_counter()
+        state, hist = loop(low.step_fn, state, generator, min(1, spec.num_steps))
+        _sync(dev)
+        compile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, rest = loop(low.step_fn, state, generator, spec.num_steps,
+                           start=1)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    for name, v in rest.items():
+        hist[name].extend(v)
+
+    history = {name: h.cpu().numpy() for name, h in _stack(hist).items()}
+    if low.finalize is not None:
+        history = low.finalize(history)
+    else:
+        history["loss"] = history["msd"] + spec.noise_var
+    level = low.breakdown_level if low.breakdown_level is not None \
+        else metrics.breakdown_threshold(spec)
+    return ScenarioResult(
+        spec=spec, history=history,
+        summary=metrics.attack_summary(history["msd"], breakdown_level=level),
+        wall_clock_s=wall, compile_s=compile_s,
+        launch_audit=_audit_from_records(records), final_state=state,
+        device=str(dev))
