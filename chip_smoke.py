@@ -11,7 +11,15 @@ Phases, each printing one JSON line (any failure exits nonzero):
               power limit as nvidia-smi reports them.
   2 parity    every kernel against its plain PyTorch version on the card,
               f32 and bf16 (f32: max |d| <= 1e-5 * max(1, |x|_inf), since
-              sums run in another order; bf16: within 1 ulp).
+              sums run in another order; bf16: within 1 ulp).  Every
+              single-pass variant (regs, warp, smem), forced through the
+              launch plan, meets every edge: K at each template bound
+              (1, 2, 5, 8, 9, 16, 17, 32, 33, 64, as far as the variant
+              holds), N = 1, 5, 32, narrow, ragged and wide M, weighted
+              and unweighted, tie-heavy columns (multiples of 0.5 under
+              uniform weights, so crossings fall exactly on 1/2) and
+              all-equal columns (the MAD floor).  One summary line per
+              kernel, variant and dtype, with its first failing cases.
   3 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
               K=32 fully connected, d=10, 1 attacker at delta=1000) on the
               kernel backend: steady MSD < 1e-2; the mean aggregator as the
@@ -29,7 +37,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
               the diffusion case, beside its plain version.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and the final
-{"ok": true, "device": ...} line.  Each entry of the kernels line is one
+{"ok": true, "device": ...} line.  A kernel's ``ms`` is one CUDA-event
+pair around 50 back-to-back launches, divided by 50; ``call_ms`` is the
+median of three single launches, each inside its own event pair with the
+wrapper's host work (the way the first slice timed it); ``profiler_ms``
+is the device time torch.profiler gives each kernel name, per launch.  Each entry of the kernels line is one
 main-path run (the paper and federated scenarios, the large cohort, the
 tree launch, the diffusion batch) and its launches are that run's own
 count: every count is set to 0 just before the run and read just after;
@@ -72,6 +84,16 @@ QWEN3_0P6B_SHAPES = {
 }
 WIDTH_AGENTS = 8
 
+# single-pass parity edges: K at each template bound of the variants, and
+# (M, N, weighted, kind) so that every variant meets narrow, ragged and
+# wide M, N = 1, 5 and 32, both medians, ties and the MAD floor
+PARITY_K = (1, 2, 5, 8, 9, 16, 17, 32, 33, 64)
+PARITY_KINDS = ("contaminated", "ties", "all_equal")
+PARITY_EDGES = ((10, 1, False, "contaminated"), (10, 5, True, "ties"),
+                (4099, 32, True, "contaminated"), (4099, 1, True, "all_equal"),
+                (65536, 1, False, "all_equal"), (65536, 5, True, "ties"),
+                (65539, 1, True, "contaminated"))
+
 
 def qwen3_shapes():
     """(leaf shapes in tree order, tree definition) of the table."""
@@ -109,6 +131,24 @@ def mm_ops(k: int, m: int, n: int, weighted: bool, num_iters: int = 10,
     return n * m * (num_iters * (per_row * k + 2) + start) + m * sort
 
 
+def ptxas_summary(log: str) -> list:
+    """Per compiled kernel of ``nvcc -Xptxas -v`` output: its (mangled)
+    name, registers, stack frame and spill bytes."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"fn": ln.split("'")[1]}
+            rows.append(cur)
+        elif cur is not None and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            words = ln.split()
+            cur["registers"] = int(words[words.index("Used") + 1])
+    return rows
+
+
 def bound(bytes_moved: int, ops: int) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -142,33 +182,83 @@ class Smoke:
             times.append(start.elapsed_time(end))
         return statistics.median(times), out
 
-    def main_path(self, fn):
-        """Run fn with every launch count set to 0; (result, its counts)."""
+    def kernel_ms(self, fn, launches: int = 50) -> tuple:
+        """(ms per launch, last result): one CUDA-event pair around
+        ``launches`` back-to-back calls, after two warm-up calls."""
+        torch = self.torch
+        out = fn()
+        out = fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / launches, out
+
+    def profiler_ms(self, fn, launches: int = 10) -> dict:
+        """Device ms per launch of each kernel fn runs, by kernel name,
+        from torch.profiler over ``launches`` calls; {} where it reports
+        no device time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        # per recorded launch: the profiler may drop a window's first one
+        return {e.key: e.self_device_time_total * 1e-3 / e.count
+                for e in prof.key_averages()
+                if "mm_" in e.key and e.count
+                and getattr(e, "self_device_time_total", 0)}
+
+    @staticmethod
+    def _counts():
         from repro_torch.kernels import mm_aggregate as mk
-        for key in mk.LAUNCHES:
-            mk.LAUNCHES[key] = 0
+        return (mk.LAUNCHES, mk.LAUNCHES_BY_VARIANT)
+
+    def main_path(self, fn):
+        """Run fn with every launch count set to 0; (result, its counts,
+        the single-pass launches by variant)."""
+        for counts in self._counts():
+            for key in counts:
+                counts[key] = 0
         result = fn()
         self.torch.cuda.synchronize()
-        return result, dict(mk.LAUNCHES)
+        launches, by_variant = self._counts()
+        return result, dict(launches), dict(by_variant)
 
     def not_counted(self, fn):
         """Run fn (a comparison launch) without touching the counts."""
-        from repro_torch.kernels import mm_aggregate as mk
-        saved = dict(mk.LAUNCHES)
+        saved = [dict(c) for c in self._counts()]
         try:
             return fn()
         finally:
-            mk.LAUNCHES.update(saved)
+            for counts, old in zip(self._counts(), saved):
+                counts.update(old)
 
-    def measure(self, key, label, x, a, plan, counts, weighted=True):
-        """Time one kernel launch and its plain version on the same
+    def measure(self, key, label, x, a, plan, counts, by_variant,
+                weighted=True):
+        """Time a kernel (``ms``: many launches; ``call_ms``: one call at
+        a time, as the first slice did) and its plain version on the same
         inputs, compare them, and record the kernels-line entry with the
-        launches of the main-path run (``counts``) that gave the shape."""
+        launches of the main-path run (``counts``, ``by_variant``) that
+        gave the shape.  A single-pass entry's plan must name the variant
+        that run launched."""
         from repro_torch.kernels import mm_aggregate as mk
         two = plan.path == "two_pass"
+        if not two:
+            assert by_variant[plan.variant] == counts["single_pass"] > 0, \
+                (key, plan.variant, by_variant)
         run = mk.two_pass if two else mk.single_pass
-        ms, got = self.not_counted(lambda: self.time_ms(
-            lambda: run(x, a, plan, weighted=weighted)))
+        call = lambda: run(x, a, plan, weighted=weighted)
+        call_ms, _ = self.not_counted(lambda: self.time_ms(call))
+        ms, got = self.not_counted(lambda: self.kernel_ms(call))
+        prof = self.not_counted(lambda: self.profiler_ms(call))
         xp, ap = mk._pad_inputs(x, a, plan=plan)
         if two:
             plain = lambda: mk.mm_two_pass_plain(
@@ -184,13 +274,13 @@ class Smoke:
                              sort_rows=plan.block_k if two else 0))
         name = "mm_two_pass" if two else "mm_single_pass"
         self.kernels[key] = dict(
-            name=key, shape=label,
+            name=key, shape=label, variant=plan.variant or "two_pass",
             launches=counts["two_pass" if two else "single_pass"],
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces="src/repro/kernels/mm_aggregate.py:" +
                      ("306" if two else "243"),
-            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=t, bound_by=by,
-            library_ms=None)
+            max_abs_err=err, ms=ms, call_ms=call_ms, profiler_ms=prof,
+            plain_ms=pms, bound_ms=t, bound_by=by, library_ms=None)
         return self.kernels[key]
 
     def device_busy_share(self, fn):
@@ -220,46 +310,62 @@ class Smoke:
         libs = build.load_all()
         seconds = time.perf_counter() - t0
         # the launch plan's shared-memory model is what the kernels carve
-        for k, n, bm in ((5, 1, 256), (32, 32, 128), (64, 1, 256)):
-            got = libs["mm_single_pass"].mm_single_pass_smem_bytes(k, n, bm)
-            assert got == mk.single_pass_smem_bytes(k, n, bm), (k, n, bm, got)
+        for variant, code in mk.SINGLE_PASS_VARIANTS.items():
+            for k, n, bm in ((5, 1, 256), (32, 32, 128), (64, 1, 256),
+                             (8, 4, 64)):
+                got = libs["mm_single_pass"].mm_single_pass_smem_bytes(
+                    code, k, n, bm)
+                assert got == mk.variant_smem_bytes(variant, k, n, bm), \
+                    (variant, k, n, bm, got)
         for k, n, bm, bk, res in ((512, 1, 64, 512, 1), (1024, 1, 32, 512, 1),
                                   (2048, 1, 32, 512, 0), (300, 3, 32, 512, 1)):
             got = libs["mm_two_pass"].mm_two_pass_smem_bytes(k, n, bm, bk, res)
             assert got == mk.two_pass_smem_bytes(k, n, bm, bk, bool(res)), got
-        ptxas = [ln.strip() for ln in build.build_log().splitlines()
-                 if "registers" in ln or "spill" in ln]
+        ptxas = ptxas_summary(build.build_log())
+        assert ptxas and not any(f.get("stack", 0) or f.get("spill_stores", 0)
+                                 or f.get("spill_loads", 0) for f in ptxas), ptxas
         emit({"phase": "build", "seconds": seconds,
               "per_library_s": build.BUILD_SECONDS, "ptxas": ptxas,
               "gpu": self.torch.cuda.get_device_name(0)})
         print(nvidia_smi(), flush=True)
 
-    def _parity_case(self, k, m, n, dtype, weighted, path, block_k=None):
+    def _parity_case(self, k, m, n, dtype, weighted, path, block_k=None,
+                     variant=None, kind="contaminated"):
+        """One kernel launch against its plain version on the same inputs;
+        the case's row (``ok`` False where it disagrees).  ``kind``:
+        contaminated (20% of the rows shifted by 1000), ties (multiples of
+        0.5 under uniform weights) or all_equal (every 7th column one
+        constant, the MAD floor, beside contaminated columns)."""
         torch = self.torch
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
-        g = torch.Generator(device=self.dev).manual_seed(k * 7919 + m + n)
+        seed = k * 7919 + m + n + 104729 * PARITY_KINDS.index(kind)
+        g = torch.Generator(device=self.dev).manual_seed(seed)
         x = torch.randn((k, m), generator=g, device=self.dev)
-        x[k - max(1, k // 5):] += 1000.0            # 20% contamination
+        if kind == "ties":
+            x = torch.round(x * 2.0) / 2.0 + 0.0       # no -0.0
+        else:
+            x[k - max(1, k // 5):] += 1000.0            # 20% contamination
+        if kind == "all_equal":
+            x[:, ::7] = 3.0
         x = x.to(dtype)
-        if weighted:
+        if not weighted:
+            a = torch.full((k, 1), 1.0 / k, device=self.dev)
+        elif kind == "ties":
+            a = torch.full((k, n), 1.0 / k, device=self.dev)
+        else:
             a = torch.rand((k, n), generator=g, device=self.dev) * 0.9 + 0.1
             a = location.normalize_weights(a, dtype=torch.float32)
-        else:
-            a = torch.full((k, 1), 1.0 / k, device=self.dev)
         plan = mk.launch_plan(k, m, n, dtype=dtype, block_k=block_k,
-                              path=path)
+                              path=path, variant=variant)
         run = mk.two_pass if path == "two_pass" else mk.single_pass
-        kms, got = self.not_counted(lambda: self.time_ms(
-            lambda: run(x, a, plan, weighted=weighted), reps=1))
+        got = self.not_counted(lambda: run(x, a, plan, weighted=weighted))
         xp, ap = mk._pad_inputs(x, a, plan=plan)
         if path == "two_pass":
-            plain = lambda: mk.mm_two_pass_plain(
-                xp, ap, k=k, block_k=plan.block_k, weighted=weighted)
+            want = mk.mm_two_pass_plain(xp, ap, k=k, block_k=plan.block_k,
+                                        weighted=weighted)
         else:
-            plain = lambda: mk.mm_single_pass_plain(xp, ap, k=k,
-                                                    weighted=weighted)
-        pms, want = self.time_ms(plain, reps=1, warmup=0)
+            want = mk.mm_single_pass_plain(xp, ap, k=k, weighted=weighted)
         want = want[:, :m]
         err = float((got.float() - want.float()).abs().max())
         scale = max(1.0, float(x.float().abs().max()))
@@ -272,28 +378,53 @@ class Smoke:
         name = "two_pass" if path == "two_pass" else "single_pass"
         if dtype == torch.float32:
             self.parity_err[name] = max(self.parity_err[name], err)
-        row = {"phase": "parity", "kernel": name, "k": k, "m": m, "n": n,
-               "dtype": str(dtype).replace("torch.", ""), "weighted": weighted,
-               "block_m": plan.block_m, "block_k": plan.block_k,
-               "tile_resident": plan.tile_resident, "max_abs_err": err,
-               "tol": 1e-5 * scale if dtype == torch.float32 else "1 ulp",
-               "ms": kms, "plain_ms": pms, "ok": ok}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"kernel disagrees with its plain version: {row}")
+        return {"kernel": name, "variant": plan.variant, "kind": kind,
+                "k": k, "m": m, "n": n,
+                "dtype": str(dtype).replace("torch.", ""), "weighted": weighted,
+                "block_m": plan.block_m, "block_k": plan.block_k,
+                "tile_resident": plan.tile_resident, "max_abs_err": err,
+                "tol": 1e-5 * scale if dtype == torch.float32 else "1 ulp",
+                "ok": ok}
 
     def parity(self):
         torch = self.torch
+        from repro_torch.kernels import mm_aggregate as mk
         single = ((5, 130, 1, False), (32, 4099, 1, True), (32, 4099, 32, True),
                   (33, 1000, 5, True), (64, 8192, 1, False))
         two = ((128, 2049, 1, True, None), (300, 513, 3, True, None),
                (1024, 4096, 1, False, 512), (96, 777, 2, True, 32),
                (2048, 1024, 1, True, 512))
+        rows = []
         for dtype in (torch.float32, torch.bfloat16):
             for k, m, n, w in single:
-                self._parity_case(k, m, n, dtype, w, "single")
+                rows.append(self._parity_case(k, m, n, dtype, w, "single"))
             for k, m, n, w, bk in two:
-                self._parity_case(k, m, n, dtype, w, "two_pass", bk)
+                rows.append(self._parity_case(k, m, n, dtype, w, "two_pass", bk))
+            # every variant, forced through the plan, at every edge
+            for variant in mk.SINGLE_PASS_VARIANTS:
+                max_k = mk.VARIANT_MAX_K.get(variant, max(PARITY_K))
+                for k in (k for k in PARITY_K if k <= max_k):
+                    for m, n, w, kind in PARITY_EDGES:
+                        rows.append(self._parity_case(
+                            k, m, n, dtype, w, "single", variant=variant,
+                            kind=kind))
+        groups = {}
+        for row in rows:
+            g = groups.setdefault((row["kernel"], row["variant"], row["dtype"]),
+                                  {"cases": 0, "failed": [], "max_abs_err": 0.0})
+            g["cases"] += 1
+            g["max_abs_err"] = max(g["max_abs_err"], row["max_abs_err"])
+            if not row["ok"]:
+                g["failed"].append(row)
+        for (kernel, variant, dtype), g in groups.items():
+            emit({"phase": "parity", "kernel": kernel, "variant": variant,
+                  "dtype": dtype, "cases": g["cases"],
+                  "max_abs_err": g["max_abs_err"],
+                  "failed": g["failed"][:5], "n_failed": len(g["failed"])})
+        bad = sum(len(g["failed"]) for g in groups.values())
+        if bad:
+            raise AssertionError(f"{bad} parity cases disagree with the "
+                                 "plain version")
 
     def paper(self):
         from repro_torch import scenarios
@@ -309,10 +440,10 @@ class Smoke:
                 step_size=paper_lsq.STEP_SIZE, num_steps=500, seed=0,
                 data_seed=0)
 
-        ref, counts = self.main_path(lambda: scenarios.run(spec("mm_tukey",
-                                                                "pallas")))
+        ref, counts, variants = self.main_path(
+            lambda: scenarios.run(spec("mm_tukey", "pallas")))
         steady = ref.summary["steady_msd"]
-        assert counts["single_pass"] > 0, counts
+        assert variants["warp"] == counts["single_pass"] > 0, variants
         assert steady < 1e-2, steady
         mean = scenarios.run(spec("mean", "jnp"))
         fed_spec = scenarios.ScenarioSpec(
@@ -321,8 +452,9 @@ class Smoke:
             num_steps=300, attack="additive",
             attack_kwargs=(("delta", 1000.0),), aggregator="mm_tukey",
             num_malicious=6, backend="pallas")
-        fed, fcounts = self.main_path(lambda: scenarios.run(fed_spec))
-        assert fcounts["single_pass"] > 0 and fed.finite(), fcounts
+        fed, fcounts, fvariants = self.main_path(lambda: scenarios.run(fed_spec))
+        assert fvariants["warp"] == fcounts["single_pass"] > 0, fvariants
+        assert fed.finite(), fed.history
         # one diffusion step's launch: (K, M, N) = (32, 10, 32)
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
@@ -333,7 +465,7 @@ class Smoke:
             self.torch.ones((32, 32), device=self.dev))
         step = self.measure("mm_single_pass (paper diffusion step)",
                             "K=32 M=10 N=32 f32", x, a,
-                            mk.launch_plan(32, 10, 32), counts)
+                            mk.launch_plan(32, 10, 32), counts, variants)
         # one federated round's launch: the cohort, unweighted
         kc = fed_spec.clients_per_round()
         xc = self.torch.randn((kc, 10), generator=g, device=self.dev)
@@ -341,17 +473,20 @@ class Smoke:
         self.measure("mm_single_pass (federated round)",
                      f"K={kc} M=10 N=1 f32", xc,
                      self.torch.full((kc, 1), 1.0 / kc, device=self.dev),
-                     mk.launch_plan(kc, 10, 1), fcounts, weighted=False)
+                     mk.launch_plan(kc, 10, 1), fcounts, fvariants,
+                     weighted=False)
         busy = self.not_counted(lambda: self.device_busy_share(
             lambda: scenarios.run(spec("mm_tukey", "pallas"))))
         emit({"phase": "paper", "ref_steady_msd": steady,
               "step_launch_ms": step["ms"], "ref_device_busy_share": busy,
-              "ref_launches": counts, "ref_compile_s": ref.compile_s,
+              "ref_launches": counts, "ref_variants": variants,
+              "ref_compile_s": ref.compile_s,
               "ref_wall_s": ref.wall_clock_s,
               "mean_steady_msd": mean.summary["steady_msd"],
               "mean_broke_down": mean.summary["broke_down"],
               "fed_mm_msd_at_50": float(fed.history["msd"][49]),
               "fed_mm_final_msd": fed.final_msd, "fed_launches": fcounts,
+              "fed_variants": fvariants,
               "fed_wall_s": fed.wall_clock_s})
 
     def cohort(self):
@@ -360,7 +495,7 @@ class Smoke:
             paradigm="federated", aggregator="mm_tukey", backend="pallas",
             attack="additive", num_agents=1024, dim=256, num_steps=3,
             num_malicious=128, participation=0.5, seed=0)
-        res, counts = self.main_path(lambda: scenarios.run(sp))
+        res, counts, variants = self.main_path(lambda: scenarios.run(sp))
         assert counts["two_pass"] > 0, counts
         assert res.finite(), res.history
         audit = res.launch_audit
@@ -371,11 +506,12 @@ class Smoke:
         plan = mk.launch_plan(512, 256, 1, block_m=audit["block_m"],
                               block_k=audit["block_k"], path="two_pass")
         entry = self.measure("mm_two_pass", "K=512 M=256 N=1 f32 "
-                             "(large_cohort)", x, a, plan, counts,
+                             "(large_cohort)", x, a, plan, counts, variants,
                              weighted=False)
         ms, pms, err = entry["ms"], entry["plain_ms"], entry["max_abs_err"]
         emit({"phase": "cohort", "msd": [float(v) for v in res.history["msd"]],
-              "launches": counts, "audit": audit, "ms": ms, "plain_ms": pms,
+              "launches": counts, "audit": audit, "ms": ms,
+              "call_ms": entry["call_ms"], "plain_ms": pms,
               "max_abs_err": err})
 
     def width(self):
@@ -396,10 +532,12 @@ class Smoke:
         engine = ops.AggregationEngine()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out, counts = self.main_path(lambda: engine.aggregate_tree(tree))
+        out, counts, variants = self.main_path(
+            lambda: engine.aggregate_tree(tree))
         tree_ms = (time.perf_counter() - t0) * 1e3  # stage + launch + split
         peak = torch.cuda.max_memory_allocated()
         assert counts == {"single_pass": 1, "two_pass": 0}, counts
+        assert variants["regs"] == 1, variants
         uniform = torch.full((k, 1), 1.0 / k, device=self.dev)
 
         def plain(x):
@@ -428,8 +566,11 @@ class Smoke:
         buf = ops.stage_leaves(leaves)
         del leaves
         plan = mk.launch_plan(k, m_total, 1)
-        ms, est = self.not_counted(lambda: self.time_ms(
-            lambda: mk.single_pass(buf, uniform, plan, weighted=False)[0]))
+        assert plan.variant == "regs", plan
+        call = lambda: mk.single_pass(buf, uniform, plan, weighted=False)[0]
+        call_ms, _ = self.not_counted(lambda: self.time_ms(call))
+        ms, est = self.not_counted(lambda: self.kernel_ms(call))
+        prof = self.not_counted(lambda: self.profiler_ms(call, launches=3))
         # the plain version over every column, in chunks it can hold
         chunk = 2 ** 24
         err, plain_ms = 0.0, 0.0
@@ -445,15 +586,16 @@ class Smoke:
         self.kernels["mm_single_pass"] = dict(
             name="mm_single_pass",
             shape=f"K={k} M={m_total} N=1 f32 (Qwen3-0.6B tree)",
-            launches=counts["single_pass"],
+            variant=plan.variant, launches=counts["single_pass"],
             source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
             replaces="src/repro/kernels/mm_aggregate.py:243", max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=t, bound_by=by,
-            library_ms=None)
+            ms=ms, call_ms=call_ms, profiler_ms=prof, plain_ms=plain_ms,
+            bound_ms=t, bound_by=by, library_ms=None)
         emit({"phase": "width", "leaves": len(leaves_shapes),
               "m_total": m_total, "launches": counts, "window_err": windows,
               "max_abs_err_all_columns": err, "tree_ms": tree_ms, "ms": ms,
-              "plain_ms": plain_ms,
+              "call_ms": call_ms, "profiler_ms": prof, "plain_ms": plain_ms,
+              "bound_share": t / ms, "variant": plan.variant,
               "total_bytes": plan.total_bytes, "gb_per_s": gbs,
               "hbm_bound_ms": t_bytes, "hbm_bound_share": t_bytes / ms,
               "bound_ms": t, "bound_by": by, "block_m": plan.block_m,
@@ -470,17 +612,21 @@ class Smoke:
         a = location.normalize_weights(
             torch.rand((k, n), generator=g, device=self.dev) + 0.1)
         # the engine's batched entry point, as diffusion_step calls it
-        out, counts = self.main_path(
+        out, counts, variants = self.main_path(
             lambda: ops.AggregationEngine().aggregate_batched(x, a))
         assert counts == {"single_pass": 1, "two_pass": 0}, counts
+        assert variants["regs"] == 1, variants
         assert out.shape == (n, m) and bool(torch.isfinite(out).all())
         del out
         plan = mk.launch_plan(k, m, n)
         entry = self.measure("mm_single_pass (diffusion batch)",
-                             f"K={k} M={m} N={n} f32", x, a, plan, counts)
+                             f"K={k} M={m} N={n} f32", x, a, plan, counts,
+                             variants)
         ms, pms, err = entry["ms"], entry["plain_ms"], entry["max_abs_err"]
         t, by = entry["bound_ms"], entry["bound_by"]
         emit({"phase": "batch", "k": k, "m": m, "n": n, "ms": ms,
+              "call_ms": entry["call_ms"], "profiler_ms": entry["profiler_ms"],
+              "variant": plan.variant,
               "plain_ms": pms, "max_abs_err": err, "bound_ms": t,
               "bound_by": by, "block_m": plan.block_m,
               "total_bytes": plan.total_bytes, "launches": counts})

@@ -37,8 +37,8 @@ _P, _I, _I64, _F, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _SIGNATURES = {
     "mm_single_pass": {
         "mm_single_pass_launch": (_I, [_P, _I, _I64, _I, _I64, _P, _I, _P, _I,
-                                       _I, _F, _I, _P]),
-        "mm_single_pass_smem_bytes": (_SZ, [_I, _I, _I]),
+                                       _I, _I, _F, _I, _P]),
+        "mm_single_pass_smem_bytes": (_SZ, [_I, _I, _I, _I]),
     },
     "mm_two_pass": {
         "mm_two_pass_launch": (_I, [_P, _I, _I64, _I, _I64, _P, _I, _P, _I,

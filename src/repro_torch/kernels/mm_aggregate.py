@@ -10,12 +10,15 @@ and combination weights a (Eq. 10/13; uniform a recovers Eq. 8):
           mu_{t+1} = sum a_k b_k phi / sum a_k b_k
 
 Two hand-written CUDA kernels compute it (``csrc/``): the single-pass
-kernel, which holds a block's whole (K, bm) tile in shared memory, and
-the two-pass K-major kernel for large cohorts, which sorts bk-row blocks
-and combines their statistics.  Each sits behind a wrapper here
+kernel, in three variants (``regs``: a column's K <= 32 values in one
+thread's registers; ``warp``: one warp per (column, n) pair, K <= 64;
+``smem``: a block's whole (K, bm) tile in shared memory), and the
+two-pass K-major kernel for large cohorts, which sorts bk-row blocks and
+combines their statistics.  Each sits behind a wrapper here
 (``single_pass``, ``two_pass``) that launches it for a CUDA tensor and
-counts the launch in ``LAUNCHES``; for a CPU tensor the wrapper runs the
-plain PyTorch version beside it (``mm_single_pass_plain``,
+counts the launch in ``LAUNCHES`` (and the single-pass variant in
+``LAUNCHES_BY_VARIANT``); for a CPU tensor the wrapper runs the plain
+PyTorch version beside it (``mm_single_pass_plain``,
 ``mm_two_pass_plain``), which repeats the TPU kernel's arithmetic on the
 padded operands: the sorted-order f32 cumulative weights, the crossing
 with no epsilon, the rank midpoints, and the per-block approximation.
@@ -29,7 +32,9 @@ columns (its median, MAD and IRLS run one thread per (column, n) pair,
 so a narrower tile leaves most of a block's threads idle), and a mesh of
 at least 65 agents whose single-pass tile does not fit takes the
 two-pass kernel, whose sort threads own (column, row) pairs and do well
-at narrow tiles.  At N = 1 the crossover sits at K ~ 300.
+at narrow tiles.  At N = 1 the crossover sits at K ~ 300.  Within the
+single pass, ``single_pass_variant`` picks the variant from (K, M, N)
+alone; the plan records it and the launcher never substitutes another.
 """
 
 from __future__ import annotations
@@ -54,8 +59,23 @@ _TWO_PASS_MIN_K = 65
 # blocks -> the approximate median-of-medians init, as in the reference)
 _MAX_BLOCK_K2 = 512
 
+# single-pass variants (csrc/mm_single_pass.cu), by their C codes
+SINGLE_PASS_VARIANTS = {"regs": 0, "warp": 1, "smem": 2}
+# most rows a variant holds: regs' largest template bound; warp's two
+# rows per lane
+VARIANT_MAX_K = {"regs": 32, "warp": 64}
+# regs runs one thread per column in blocks of up to 256: below 66 such
+# blocks (16,896 columns) its grid covers less than half of the card's
+# 132 SMs, so most of the card would idle
+REGS_MIN_COLUMNS = 66 * 256
+# warp runs one warp per (column, n) pair: 32 lanes for work that regs
+# and smem give one thread.  It pays while the pairs fit one wave of 32
+# warps on each of the 132 SMs; past that the card is full either way
+WARP_MAX_PAIRS = 132 * 32
+
 # kernel launches made by the wrappers below, for CUDA tensors only
 LAUNCHES = {"single_pass": 0, "two_pass": 0}
+LAUNCHES_BY_VARIANT = {v: 0 for v in SINGLE_PASS_VARIANTS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -81,11 +101,14 @@ class LaunchPlan(NamedTuple):
     """Static geometry + modeled HBM traffic of one batched launch.
 
     ``grid`` is (column tiles, K blocks); the kernel grid is the first
-    entry, the K blocks are a loop inside each block.  Traffic counts
-    what the kernel moves: each x element once (plus one re-read per IRLS
-    step when the two-pass tile cannot stay resident), the weights, and
-    the (N, M) output; it does not depend on ``n_out``.  ``n_chunk`` is
-    ``n_out``: a block's threads cover every (column, n) pair at once.
+    entry, the K blocks are a loop inside each block.  The single-pass
+    ``warp`` variant's grid counts blocks of eight (column, n) pairs, and
+    ``regs`` walks its column tiles on at most as many blocks as the card
+    holds at once.  Traffic counts what the kernel moves: each x element
+    once (plus one re-read per IRLS step when the two-pass tile cannot
+    stay resident), the weights, and the (N, M) output; it does not
+    depend on ``n_out``.  ``n_chunk`` is ``n_out``: a block's threads
+    cover every (column, n) pair at once.
     """
     grid: Tuple[int, int]
     block_m: int
@@ -103,6 +126,7 @@ class LaunchPlan(NamedTuple):
     stats_bytes: int = 0      # shared-memory pass-1 stats, never in HBM
     smem_bytes: int = 0       # shared memory one block carves
     tile_resident: bool = True
+    variant: Optional[str] = None   # single-pass variant; None for two-pass
 
     @property
     def total_bytes(self) -> int:
@@ -111,10 +135,36 @@ class LaunchPlan(NamedTuple):
 
 
 def single_pass_smem_bytes(k: int, n: int, block_m: int) -> int:
-    """Shared memory of the single-pass kernel: the (K, bm) f32 tile, the
-    (K, N) weight tile and the (K, bm) uint16 row-index tile (the C
-    function ``mm_single_pass_smem_bytes`` computes the same)."""
+    """Shared memory of the single-pass smem variant: the (K, bm) f32
+    tile, the (K, N) weight tile and the (K, bm) uint16 row-index tile
+    (the C function ``mm_single_pass_smem_bytes`` computes the same).
+    ``auto_path`` sizes the single/two-pass crossover with it."""
     return 4 * k * block_m + 4 * k * n + 2 * k * block_m
+
+
+def variant_smem_bytes(variant: str, k: int, n: int, block_m: int) -> int:
+    """Shared memory one block of a single-pass variant carves (C:
+    ``mm_single_pass_smem_bytes``): regs stages only the (K, N) weights,
+    at an odd row stride; warp none; smem its whole tile."""
+    if variant == "regs":
+        return 4 * k * (n | 1)
+    if variant == "warp":
+        return 0
+    return single_pass_smem_bytes(k, n, block_m)
+
+
+def single_pass_variant(k: int, m: int, n: int = 1) -> str:
+    """The single-pass variant for a (K, M) x (K, N) launch: regs for
+    K <= 32 over wide M; warp for K <= 64 while the (column, n) pairs
+    fit one wave of warps; regs for any other K <= 32; else smem."""
+    k, m, n = int(k), int(m), int(n)
+    if k <= VARIANT_MAX_K["regs"] and m >= REGS_MIN_COLUMNS:
+        return "regs"
+    if k <= VARIANT_MAX_K["warp"] and m * n <= WARP_MAX_PAIRS:
+        return "warp"
+    if k <= VARIANT_MAX_K["regs"]:
+        return "regs"
+    return "smem"
 
 
 def two_pass_smem_bytes(k: int, n: int, block_m: int, block_k: int,
@@ -150,15 +200,20 @@ def launch_plan(k: int, m: int, n: int = 1, *,
                 block_m: Optional[int] = None,
                 block_k: Optional[int] = None,
                 path: Optional[str] = None,
-                num_iters: int = 10) -> LaunchPlan:
+                num_iters: int = 10,
+                variant: Optional[str] = None) -> LaunchPlan:
     """Resolve the kernel path + tile sizes (via kernels.tuning when
     unset) and derive the grid, modeled HBM traffic and shared memory of
     a (K, M) x (K, N) launch.  ``path=None`` takes the cached tuning
     choice when it names a path, else ``auto_path``.  The single-pass
     kernel loads all K rows as one block, so ``block_k`` applies to the
-    two-pass path only."""
+    two-pass path only; ``variant=None`` takes ``single_pass_variant``,
+    and a variant named for a K it cannot hold raises."""
     if path is not None and path not in PATHS:
         raise ValueError(f"unknown kernel path {path!r}; known: {PATHS}")
+    if variant is not None and variant not in SINGLE_PASS_VARIANTS:
+        raise ValueError(f"unknown single-pass variant {variant!r}; known: "
+                         f"{tuple(SINGLE_PASS_VARIANTS)}")
     dtype = _as_dtype(dtype)
     if block_m is None or block_k is None or path is None:
         from repro_torch.kernels import tuning  # deferred: tuning sizes plans
@@ -202,15 +257,23 @@ def launch_plan(k: int, m: int, n: int = 1, *,
             tile_resident=resident,
         )
 
+    variant = variant or single_pass_variant(k, m, n)
+    max_k = VARIANT_MAX_K.get(variant)
+    if max_k is not None and k > max_k:
+        raise ValueError(f"the {variant} variant holds at most {max_k} "
+                         f"rows, got K={k}")
+    # warp launches one warp per (column, n) pair, eight to a block
+    grid = -(-m * n // 8) if variant == "warp" else tiles
     return LaunchPlan(
-        grid=(tiles, 1), block_m=block_m, block_k=k, k_pad=k,
+        grid=(grid, 1), block_m=block_m, block_k=k, k_pad=k,
         m_total=m_total, n_out=n,
         input_block_fetches=tiles,
         input_bytes=k * m * itemsize,
         weight_bytes=weight_bytes, output_bytes=output_bytes,
         path=path, n_chunk=n, num_k_blocks=1,
         stats_bytes=0,
-        smem_bytes=single_pass_smem_bytes(k, n, block_m),
+        smem_bytes=variant_smem_bytes(variant, k, n, block_m),
+        variant=variant,
     )
 
 
@@ -393,8 +456,8 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
                 num_iters: int = 10, c: float = mestimators.TUKEY_C95,
                 weighted: bool = True) -> torch.Tensor:
     """Single-pass MM aggregation: (K, M) x (K, N) normalized -> (N, M).
-    Launches the CUDA kernel for a CUDA tensor, runs the plain version
-    for a CPU tensor."""
+    Launches the plan's variant of the CUDA kernel for a CUDA tensor,
+    runs the plain version for a CPU tensor."""
     k, m = x.shape
     if x.device.type == "cpu":
         xp, ap = _pad_inputs(x, a, plan=plan)
@@ -404,10 +467,13 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
     args, stream = _launch_args(x, a, out, plan)
     err = build.library("mm_single_pass").mm_single_pass_launch(
-        *args, num_iters, c * c, int(weighted), stream)
+        *args, SINGLE_PASS_VARIANTS[plan.variant], num_iters, c,
+        int(weighted), stream)
     if err:
-        raise RuntimeError(f"mm_single_pass launch failed: cudaError {err}")
+        raise RuntimeError(f"mm_single_pass ({plan.variant}) launch failed: "
+                           f"cudaError {err}")
     LAUNCHES["single_pass"] += 1
+    LAUNCHES_BY_VARIANT[plan.variant] += 1
     return out
 
 
