@@ -18,8 +18,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
               holds), N = 1, 5, 32, narrow, ragged and wide M, weighted
               and unweighted, tie-heavy columns (multiples of 0.5 under
               uniform weights, so crossings fall exactly on 1/2) and
-              all-equal columns (the MAD floor).  One summary line per
-              kernel, variant and dtype, with its first failing cases.
+              all-equal columns (the MAD floor).  The two-pass kernel
+              meets the first slice's cases; the cohort's (512, 256, 1);
+              (K, N) = (200, 200), (256, 256) and (512, 512), weighted, at
+              M of 1,031-4,099; (4096, 8); K = 8192 at N = 1 (16 K
+              blocks); K = 1100 at block_k 64 (18 blocks); K = 2048 at
+              block_k 32 (64 blocks: the combine in shared memory); a
+              last block of one row; a massless middle K block; ties,
+              the MAD floor and ragged M; blocks of 8, 4, 2 and 1
+              columns.  One summary line per kernel, variant and dtype,
+              with its first failing cases.
   3 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
               K=32 fully connected, d=10, 1 attacker at delta=1000) on the
               kernel backend: steady MSD < 1e-2; the mean aggregator as the
@@ -34,16 +42,28 @@ Phases, each printing one JSON line (any failure exits nonzero):
               .aggregate_tree: one launch, checked against the plain
               version over every column, timed with CUDA events.
   6 batch     one aggregate_batched launch at (K, M, N) = (32, 2^20, 32),
-              the diffusion case, beside its plain version.
+              the diffusion case, beside its plain version; then the
+              same over 256 fully connected agents, (256, 2^16, 256),
+              weighted, which takes the two-pass kernel.
+  7 cohort_width  the large cohort aggregated over the parameters of one
+              Qwen3-0.6B decoder layer: K = 512 clients (the last 64
+              shifted by 1000), M = 15,730,944, f32, made on the card
+              from a seed (32.2 GB), through AggregationEngine.aggregate:
+              one two-pass launch, checked against the plain version
+              over every column, timed as the other entries.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  A kernel's ``ms`` is one CUDA-event
-pair around 50 back-to-back launches, divided by 50; ``call_ms`` is the
-median of three single launches, each inside its own event pair with the
-wrapper's host work (the way the first slice timed it); ``profiler_ms``
-is the device time torch.profiler gives each kernel name, per launch.  Each entry of the kernels line is one
-main-path run (the paper and federated scenarios, the large cohort, the
-tree launch, the diffusion batch) and its launches are that run's own
+pair around 50 back-to-back launches (10 for the 256-agent batch and
+the cohort layer), divided by their count; ``call_ms`` is the median of
+three single launches, each inside its own event pair with the wrapper's
+host work (the way the first slice timed it); ``profiler_ms`` is a
+call's device time by torch.profiler: the sum over every kernel the call
+runs of its device time per launch (``profiler_kernels`` gives each
+kernel's name and share).  Each entry of the kernels line is one
+main-path run (the paper and federated scenarios, the large cohort and
+its layer-wide launch, the tree launch, the diffusion batches) and its
+launches are that run's own
 count: every count is set to 0 just before the run and read just after;
 launches made to time a kernel or compare it with its plain version are
 not counted.  bound_ms is the larger of the bytes the function must move
@@ -66,7 +86,8 @@ import time
 HERE = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-PHASES = ("build", "parity", "paper", "cohort", "width", "batch")
+PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
+          "cohort_width")
 
 # Qwen3-0.6B (configs/qwen3_0p6b.py) parameter tree: leaf shapes
 QWEN3_0P6B_SHAPES = {
@@ -88,11 +109,46 @@ WIDTH_AGENTS = 8
 # (M, N, weighted, kind) so that every variant meets narrow, ragged and
 # wide M, N = 1, 5 and 32, both medians, ties and the MAD floor
 PARITY_K = (1, 2, 5, 8, 9, 16, 17, 32, 33, 64)
-PARITY_KINDS = ("contaminated", "ties", "all_equal")
+PARITY_KINDS = ("contaminated", "ties", "all_equal", "massless")
 PARITY_EDGES = ((10, 1, False, "contaminated"), (10, 5, True, "ties"),
                 (4099, 32, True, "contaminated"), (4099, 1, True, "all_equal"),
                 (65536, 1, False, "all_equal"), (65536, 5, True, "ties"),
                 (65539, 1, True, "contaminated"))
+# two-pass parity cases (K, M, N, weighted, block_k, kind): the first
+# slice's; the cohort's; the (K, N) the first kernel could not fit; 16,
+# 18 and 64 K blocks; a last block of one row; a massless middle block;
+# ties, the MAD floor and ragged M; blocks of 8, 4, 2 and 1 columns
+TWO_PASS_CASES = (
+    (128, 2049, 1, True, None, "contaminated"),
+    (300, 513, 3, True, None, "contaminated"),
+    (1024, 4096, 1, False, 512, "contaminated"),
+    (96, 777, 2, True, 32, "contaminated"),
+    (2048, 1024, 1, True, 512, "contaminated"),
+    (512, 256, 1, False, None, "contaminated"),
+    (200, 1031, 200, True, None, "contaminated"),
+    (256, 4099, 256, True, None, "contaminated"),
+    (256, 1031, 256, True, None, "ties"),
+    (512, 1031, 512, True, None, "contaminated"),
+    (4096, 4099, 8, True, None, "contaminated"),
+    (4096, 4099, 1, False, None, "all_equal"),
+    (8192, 1031, 1, True, None, "contaminated"),
+    (8192, 1031, 1, False, None, "ties"),
+    (1100, 4099, 1, True, 64, "contaminated"),
+    (1100, 4099, 1, False, 64, "all_equal"),
+    (2048, 1031, 1, True, 32, "contaminated"),
+    (2048, 1031, 1, False, 32, "ties"),
+    (513, 4099, 8, True, None, "ties"),
+    (1024, 4099, 2, True, 256, "massless"),
+    (512, 300, 2, True, None, "all_equal"),
+    (70, 4099, 1, True, 32, "ties"),
+    (65, 4099, 1, False, None, "all_equal"),
+    (300, 65539, 1, True, None, "all_equal"),
+)
+# the large cohort aggregated layer by layer: 512 participating clients
+# (examples/scenario_sweep.py large_cohort, 1024 at participation 0.5)
+# over the parameters of one Qwen3-0.6B decoder layer, the last 64
+# (12.5%) shifted by 1000
+COHORT_K, COHORT_BAD = 512, 64
 
 
 def qwen3_shapes():
@@ -198,10 +254,11 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / launches, out
 
-    def profiler_ms(self, fn, launches: int = 10) -> dict:
-        """Device ms per launch of each kernel fn runs, by kernel name,
-        from torch.profiler over ``launches`` calls; {} where it reports
-        no device time."""
+    def profiler_ms(self, fn, launches: int = 10) -> tuple:
+        """(device ms of one call of fn, {kernel name: device ms per
+        launch}) from torch.profiler over ``launches`` calls: a call's
+        time is the sum over every kernel it runs, whatever its name;
+        (None, {}) where the profiler reports no device time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -211,10 +268,10 @@ class Smoke:
                 fn()
             torch.cuda.synchronize()
         # per recorded launch: the profiler may drop a window's first one
-        return {e.key: e.self_device_time_total * 1e-3 / e.count
-                for e in prof.key_averages()
-                if "mm_" in e.key and e.count
-                and getattr(e, "self_device_time_total", 0)}
+        by_name = {e.key: e.self_device_time_total * 1e-3 / e.count
+                   for e in prof.key_averages()
+                   if e.count and getattr(e, "self_device_time_total", 0)}
+        return (sum(by_name.values()) if by_name else None), by_name
 
     @staticmethod
     def _counts():
@@ -242,13 +299,15 @@ class Smoke:
                 counts.update(old)
 
     def measure(self, key, label, x, a, plan, counts, by_variant,
-                weighted=True):
-        """Time a kernel (``ms``: many launches; ``call_ms``: one call at
-        a time, as the first slice did) and its plain version on the same
-        inputs, compare them, and record the kernels-line entry with the
-        launches of the main-path run (``counts``, ``by_variant``) that
-        gave the shape.  A single-pass entry's plan must name the variant
-        that run launched."""
+                weighted=True, launches=50, chunk=None):
+        """Time a kernel (``ms``: ``launches`` back-to-back launches;
+        ``call_ms``: one call at a time, as the first slice did;
+        ``profiler_ms``: a call's device time) and its plain version on
+        the same inputs (``chunk`` columns at a time), compare them, and
+        record the kernels-line entry with the launches of the main-path
+        run (``counts``, ``by_variant``) that gave the shape.  A
+        single-pass entry's plan must name the variant that run
+        launched."""
         from repro_torch.kernels import mm_aggregate as mk
         two = plan.path == "two_pass"
         if not two:
@@ -257,17 +316,10 @@ class Smoke:
         run = mk.two_pass if two else mk.single_pass
         call = lambda: run(x, a, plan, weighted=weighted)
         call_ms, _ = self.not_counted(lambda: self.time_ms(call))
-        ms, got = self.not_counted(lambda: self.kernel_ms(call))
-        prof = self.not_counted(lambda: self.profiler_ms(call))
-        xp, ap = mk._pad_inputs(x, a, plan=plan)
-        if two:
-            plain = lambda: mk.mm_two_pass_plain(
-                xp, ap, k=x.shape[0], block_k=plan.block_k, weighted=weighted)
-        else:
-            plain = lambda: mk.mm_single_pass_plain(xp, ap, k=x.shape[0],
-                                                    weighted=weighted)
-        pms, want = self.time_ms(plain, reps=1)
-        err = float((got - want[:, :x.shape[1]]).abs().max())
+        ms, got = self.not_counted(lambda: self.kernel_ms(call, launches))
+        prof, by_name = self.not_counted(lambda: self.profiler_ms(
+            call, launches=3 if ms > 10 else 10))
+        pms, err = self.plain_check(x, a, got, plan, weighted, chunk)
         assert err <= 1e-5 * max(1.0, float(x.abs().max())), (key, err)
         t, by = bound(plan.total_bytes,
                       mm_ops(x.shape[0], x.shape[1], plan.n_out, weighted,
@@ -280,8 +332,36 @@ class Smoke:
             replaces="src/repro/kernels/mm_aggregate.py:" +
                      ("306" if two else "243"),
             max_abs_err=err, ms=ms, call_ms=call_ms, profiler_ms=prof,
-            plain_ms=pms, bound_ms=t, bound_by=by, library_ms=None)
+            profiler_kernels=by_name, plain_ms=pms, bound_ms=t, bound_by=by,
+            library_ms=None, block_m=plan.block_m, block_k=plan.block_k,
+            n_chunk=plan.n_chunk)
         return self.kernels[key]
+
+    def plain_check(self, x, a, got, plan, weighted, chunk=None):
+        """(ms of the plain version over every column, its max |d| from
+        the kernel's ``got``), run ``chunk`` columns at a time (all at
+        once for None) so its (K, N, M) planes fit the card."""
+        from repro_torch.kernels import mm_aggregate as mk
+        k, m = x.shape
+        chunk = chunk or m
+        plain_ms, err = 0.0, 0.0
+        for lo in range(0, m, chunk):
+            xc = x[:, lo:lo + chunk].contiguous()
+            pc = mk.launch_plan(k, xc.shape[1], plan.n_out, path=plan.path,
+                                block_k=plan.block_k, variant=plan.variant)
+            xp, ap = mk._pad_inputs(xc, a, plan=pc)
+            if plan.path == "two_pass":
+                plain = lambda: mk.mm_two_pass_plain(
+                    xp, ap, k=k, block_k=plan.block_k, weighted=weighted)
+            else:
+                plain = lambda: mk.mm_single_pass_plain(xp, ap, k=k,
+                                                        weighted=weighted)
+            t, want = self.time_ms(plain, reps=1, warmup=0)
+            plain_ms += t
+            err = max(err, float((got[:, lo:lo + chunk]
+                                  - want[:, :xc.shape[1]]).abs().max()))
+            del xc, xp, want
+        return plain_ms, err
 
     def device_busy_share(self, fn):
         """Share of fn's wall time the card spent in kernels, from
@@ -317,10 +397,13 @@ class Smoke:
                     code, k, n, bm)
                 assert got == mk.variant_smem_bytes(variant, k, n, bm), \
                     (variant, k, n, bm, got)
-        for k, n, bm, bk, res in ((512, 1, 64, 512, 1), (1024, 1, 32, 512, 1),
-                                  (2048, 1, 32, 512, 0), (300, 3, 32, 512, 1)):
-            got = libs["mm_two_pass"].mm_two_pass_smem_bytes(k, n, bm, bk, res)
-            assert got == mk.two_pass_smem_bytes(k, n, bm, bk, bool(res)), got
+        for k, nc, bk, bm in ((512, 1, 512, 8), (1024, 1, 512, 8),
+                              (8192, 1, 512, 4), (256, 64, 256, 8),
+                              (96, 2, 32, 4), (2048, 1, 32, 8),
+                              (65, 1, 128, 1)):
+            got = libs["mm_two_pass"].mm_two_pass_smem_bytes(k, nc, bk, bm)
+            assert got == mk.two_pass_smem_bytes(k, nc, bk, bm), \
+                (k, nc, bk, bm, got)
         ptxas = ptxas_summary(build.build_log())
         assert ptxas and not any(f.get("stack", 0) or f.get("spill_stores", 0)
                                  or f.get("spill_loads", 0) for f in ptxas), ptxas
@@ -335,7 +418,8 @@ class Smoke:
         the case's row (``ok`` False where it disagrees).  ``kind``:
         contaminated (20% of the rows shifted by 1000), ties (multiples of
         0.5 under uniform weights) or all_equal (every 7th column one
-        constant, the MAD floor, beside contaminated columns)."""
+        constant, the MAD floor, beside contaminated columns) or massless
+        (contaminated, the second K block's weights 0)."""
         torch = self.torch
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
@@ -349,15 +433,17 @@ class Smoke:
         if kind == "all_equal":
             x[:, ::7] = 3.0
         x = x.to(dtype)
+        plan = mk.launch_plan(k, m, n, dtype=dtype, block_k=block_k,
+                              path=path, variant=variant)
         if not weighted:
             a = torch.full((k, 1), 1.0 / k, device=self.dev)
         elif kind == "ties":
             a = torch.full((k, n), 1.0 / k, device=self.dev)
         else:
             a = torch.rand((k, n), generator=g, device=self.dev) * 0.9 + 0.1
+            if kind == "massless":
+                a[plan.block_k:2 * plan.block_k] = 0.0
             a = location.normalize_weights(a, dtype=torch.float32)
-        plan = mk.launch_plan(k, m, n, dtype=dtype, block_k=block_k,
-                              path=path, variant=variant)
         run = mk.two_pass if path == "two_pass" else mk.single_pass
         got = self.not_counted(lambda: run(x, a, plan, weighted=weighted))
         xp, ap = mk._pad_inputs(x, a, plan=plan)
@@ -382,7 +468,7 @@ class Smoke:
                 "k": k, "m": m, "n": n,
                 "dtype": str(dtype).replace("torch.", ""), "weighted": weighted,
                 "block_m": plan.block_m, "block_k": plan.block_k,
-                "tile_resident": plan.tile_resident, "max_abs_err": err,
+                "n_chunk": plan.n_chunk, "max_abs_err": err,
                 "tol": 1e-5 * scale if dtype == torch.float32 else "1 ulp",
                 "ok": ok}
 
@@ -391,15 +477,13 @@ class Smoke:
         from repro_torch.kernels import mm_aggregate as mk
         single = ((5, 130, 1, False), (32, 4099, 1, True), (32, 4099, 32, True),
                   (33, 1000, 5, True), (64, 8192, 1, False))
-        two = ((128, 2049, 1, True, None), (300, 513, 3, True, None),
-               (1024, 4096, 1, False, 512), (96, 777, 2, True, 32),
-               (2048, 1024, 1, True, 512))
         rows = []
         for dtype in (torch.float32, torch.bfloat16):
             for k, m, n, w in single:
                 rows.append(self._parity_case(k, m, n, dtype, w, "single"))
-            for k, m, n, w, bk in two:
-                rows.append(self._parity_case(k, m, n, dtype, w, "two_pass", bk))
+            for k, m, n, w, bk, kind in TWO_PASS_CASES:
+                rows.append(self._parity_case(k, m, n, dtype, w, "two_pass",
+                                              bk, kind=kind))
             # every variant, forced through the plan, at every edge
             for variant in mk.SINGLE_PASS_VARIANTS:
                 max_k = mk.VARIANT_MAX_K.get(variant, max(PARITY_K))
@@ -511,8 +595,10 @@ class Smoke:
         ms, pms, err = entry["ms"], entry["plain_ms"], entry["max_abs_err"]
         emit({"phase": "cohort", "msd": [float(v) for v in res.history["msd"]],
               "launches": counts, "audit": audit, "ms": ms,
-              "call_ms": entry["call_ms"], "plain_ms": pms,
-              "max_abs_err": err})
+              "call_ms": entry["call_ms"], "profiler_ms": entry["profiler_ms"],
+              "profiler_kernels": entry["profiler_kernels"], "plain_ms": pms,
+              "max_abs_err": err, "blocks": mk.two_pass_blocks(
+                  plan, 512, weighted=False)})
 
     def width(self):
         torch = self.torch
@@ -570,7 +656,8 @@ class Smoke:
         call = lambda: mk.single_pass(buf, uniform, plan, weighted=False)[0]
         call_ms, _ = self.not_counted(lambda: self.time_ms(call))
         ms, est = self.not_counted(lambda: self.kernel_ms(call))
-        prof = self.not_counted(lambda: self.profiler_ms(call, launches=3))
+        prof, prof_kernels = self.not_counted(
+            lambda: self.profiler_ms(call, launches=3))
         # the plain version over every column, in chunks it can hold
         chunk = 2 ** 24
         err, plain_ms = 0.0, 0.0
@@ -589,7 +676,8 @@ class Smoke:
             variant=plan.variant, launches=counts["single_pass"],
             source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
             replaces="src/repro/kernels/mm_aggregate.py:243", max_abs_err=err,
-            ms=ms, call_ms=call_ms, profiler_ms=prof, plain_ms=plain_ms,
+            ms=ms, call_ms=call_ms, profiler_ms=prof,
+            profiler_kernels=prof_kernels, plain_ms=plain_ms,
             bound_ms=t, bound_by=by, library_ms=None)
         emit({"phase": "width", "leaves": len(leaves_shapes),
               "m_total": m_total, "launches": counts, "window_err": windows,
@@ -630,6 +718,81 @@ class Smoke:
               "plain_ms": pms, "max_abs_err": err, "bound_ms": t,
               "bound_by": by, "block_m": plan.block_m,
               "total_bytes": plan.total_bytes, "launches": counts})
+        del x, a
+        # fully connected diffusion over 256 agents: (256, 2^16, 256),
+        # weighted, on the two-pass kernel (its weights staged 64 columns
+        # of N at a time)
+        k, m, n = 256, 2 ** 16, 256
+        x = torch.randn((k, m), generator=g, device=self.dev)
+        x[k - k // 5:] += 1000.0
+        a = location.normalize_weights(
+            torch.rand((k, n), generator=g, device=self.dev) + 0.1)
+        out, counts, variants = self.main_path(
+            lambda: ops.AggregationEngine().aggregate_batched(x, a))
+        assert counts == {"single_pass": 0, "two_pass": 1}, counts
+        assert out.shape == (n, m) and bool(torch.isfinite(out).all())
+        del out
+        plan = mk.launch_plan(k, m, n)
+        entry = self.measure("mm_two_pass (diffusion batch, 256 agents)",
+                             f"K={k} M={m} N={n} f32", x, a, plan, counts,
+                             variants, launches=10, chunk=4096)
+        emit({"phase": "batch", "k": k, "m": m, "n": n, "ms": entry["ms"],
+              "call_ms": entry["call_ms"], "profiler_ms": entry["profiler_ms"],
+              "profiler_kernels": entry["profiler_kernels"],
+              "variant": "two_pass", "plain_ms": entry["plain_ms"],
+              "max_abs_err": entry["max_abs_err"],
+              "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+              "block_m": plan.block_m, "block_k": plan.block_k,
+              "n_chunk": plan.n_chunk, "smem_bytes": plan.smem_bytes,
+              "blocks": mk.two_pass_blocks(plan, k),
+              "total_bytes": plan.total_bytes, "launches": counts})
+
+    def cohort_width(self):
+        torch = self.torch
+        from repro_torch.kernels import mm_aggregate as mk, ops
+        shapes, _ = qwen3_shapes()
+        # one decoder layer: each blocks.* leaf divided by its 28 layers
+        m = sum(math.prod(sh[1:]) for sh in shapes if len(sh) > 1
+                and sh[0] == 28)
+        k = COHORT_K
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+        g = torch.Generator(device=self.dev).manual_seed(3)
+        x = torch.randn((k, m), generator=g, device=self.dev)
+        x[k - COHORT_BAD:] += 1000.0
+        engine = ops.AggregationEngine()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, counts, variants = self.main_path(lambda: engine.aggregate(x))
+        peak = torch.cuda.max_memory_allocated()
+        assert counts == {"single_pass": 0, "two_pass": 1}, counts
+        assert out.shape == (m,) and bool(torch.isfinite(out).all())
+        plan = mk.launch_plan(k, m, 1)
+        assert plan.path == "two_pass" and plan.num_k_blocks == 1, plan
+        uniform = torch.full((k, 1), 1.0 / k, device=self.dev)
+        est = self.not_counted(
+            lambda: mk.two_pass(x, uniform, plan, weighted=False))
+        assert torch.equal(est[0], out), "the engine and the wrapper disagree"
+        del out, est
+        entry = self.measure(
+            "mm_two_pass (large-cohort layer)",
+            f"K={k} M={m} N=1 f32 (one Qwen3-0.6B decoder layer)", x,
+            uniform, plan, counts, variants, weighted=False, launches=10,
+            chunk=2 ** 20)
+        ms, t = entry["ms"], entry["bound_ms"]
+        t_bytes = plan.total_bytes / HBM_BYTES_PER_S * 1e3
+        emit({"phase": "cohort_width", "k": k, "m": m, "launches": counts,
+              "ms": ms, "call_ms": entry["call_ms"],
+              "profiler_ms": entry["profiler_ms"],
+              "profiler_kernels": entry["profiler_kernels"],
+              "plain_ms": entry["plain_ms"],
+              "max_abs_err_all_columns": entry["max_abs_err"],
+              "bound_ms": t, "bound_by": entry["bound_by"],
+              "bound_share": t / ms, "hbm_bound_ms": t_bytes,
+              "gb_per_s": plan.total_bytes / (ms * 1e-3) / 1e9,
+              "total_bytes": plan.total_bytes, "block_m": plan.block_m,
+              "block_k": plan.block_k, "smem_bytes": plan.smem_bytes,
+              "blocks": mk.two_pass_blocks(plan, k, weighted=False),
+              "max_memory_allocated": peak})
 
     def kernels_line(self) -> None:
         rows = []

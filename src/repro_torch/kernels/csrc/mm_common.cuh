@@ -1,20 +1,26 @@
-// Device helpers shared by the two MM-aggregation kernels.
+// Device helpers of the MM-aggregation kernels.
 //
 // Replaces the Pallas device helpers of src/repro/kernels/mm_aggregate.py
 // (:134-240): _bitonic_stage/_bitonic_sort_rows (a paired sort network
 // whose swap mask permutes every carried weight plane), _median_rows,
 // _wquantile_planes/_weighted_median_planes and _rank_median_planes.
+// The sort networks of the `regs`/`warp` single-pass variants and of the
+// two-pass kernel live in their own sources (mm_single_pass.cu,
+// mm_two_pass.cu); what is here serves every kernel (the float <-> key
+// maps, the IRLS row in reciprocal form) or the single-pass `smem`
+// variant (the rank sort over a shared-memory tile and its consumers).
 //
 // What changes on Hopper, and why:
 //   * The TPU sorts a (P, N, bm) stack of weight planes through a
-//     bitonic network in vector registers.  Here a column is sorted once
-//     by ranks: the thread that owns (column, row r) counts the rows that
-//     order before r and writes r into that slot of a row-index tile in
-//     shared memory.  Every consumer then gathers the value from the
-//     resident (rows, bm) tile and the weight a[row, n] from the (K, N)
-//     weight tile, so N weight planes are never materialised.  Ranks use
-//     a total order on the float's bits (ties broken by row index), so the
-//     index tile is always a permutation, even on NaN input.
+//     bitonic network in vector registers.  The `smem` variant sorts a
+//     column once by ranks: the thread that owns (column, row r) counts
+//     the rows that order before r and writes r into that slot of a
+//     row-index tile in shared memory.  Every consumer then gathers the
+//     value from the resident (rows, bm) tile and the weight a[row, n]
+//     from the (K, N) weight tile, so N weight planes are never
+//     materialised.  Ranks use a total order on the float's bits (ties
+//     broken by row index), so the index tile is always a permutation,
+//     even on NaN input.
 //   * Sorted order equals a stable argsort: the same order the plain
 //     PyTorch version uses, so cumulative weights are summed in the same
 //     sequence, in f32, and a crossing at exactly 1/2 picks the same row.
@@ -53,6 +59,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 __device__ __forceinline__ uint32_t sort_key(float v) {
   uint32_t b = __float_as_uint(v);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Inverse of sort_key: the float whose key this is.
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+__host__ __device__ constexpr int ilog2(int p) {
+  return p <= 1 ? 0 : 1 + ilog2(p / 2);
 }
 
 // Load rows [0, cnt) x columns [0, cols) of a row-major (.., ld) array
@@ -117,17 +132,6 @@ __device__ __forceinline__ float weighted_crossing(
   return 0.0f;
 }
 
-// Sum of the column's weights in sorted order (the block mass the
-// two-pass pass 1 halves), in the same f32 order as weighted_crossing.
-__device__ __forceinline__ float sorted_mass(const uint16_t* idx,
-                                             const float* a, int64_t row0,
-                                             int n, int nn, int cnt, int col,
-                                             int bm) {
-  float s = 0.0f;
-  for (int j = 0; j < cnt; ++j) s += a[(row0 + idx[j * bm + col]) * n + nn];
-  return s;
-}
-
 // Rank median of |v_j - med| over the cnt sorted values of one column.
 __device__ float mad_median(const float* tile, const uint16_t* idx, int cnt,
                             int col, int bm, float med) {
@@ -161,12 +165,20 @@ __device__ float mad_median(const float* tile, const uint16_t* idx, int cnt,
   return 0.5f * (lo + hi);
 }
 
-// One Tukey IRLS step's weight: w = a * (clip(1 - y^2 / c^2, 0, 1))^2.
-__device__ __forceinline__ float tukey_weight(float xv, float mu, float scale,
-                                              float c2, float a) {
-  float y = (xv - mu) / scale;
-  float u = fminf(fmaxf(1.0f - (y * y) / c2, 0.0f), 1.0f);
-  return a * (u * u);
+// One row's share of a Tukey IRLS step, in reciprocal form (inv =
+// 1 / (c scale), once per (column, n) and step).  x - mu is taken first:
+// it is exact for rows near mu, so a row at mu keeps weight a even where
+// the MAD is floored and inv is huge.
+__device__ __forceinline__ void tukey_accumulate(float xv, float a, float mu,
+                                                 float inv, float& num,
+                                                 float& den) {
+  const float y = (xv - mu) * inv;
+  // 1 - y^2 <= 1, so saturating to [0, 1] is the clamp at 0, and it
+  // rides on the FMA
+  const float u = __saturatef(fmaf(-y, y, 1.0f));
+  const float w = a * (u * u);
+  num = fmaf(w, xv, num);
+  den += w;
 }
 
 __device__ __forceinline__ float irls_update(float num, float den, float mu) {

@@ -75,14 +75,9 @@ constexpr int kWarpsPerBlock = mm::kThreads / 32;
 constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
 enum Variant { kRegs = 0, kWarp = 1, kSmem = 2 };
 
-__host__ __device__ constexpr int ilog2(int p) {
-  return p <= 1 ? 0 : 1 + ilog2(p / 2);
-}
-
-// Inverse of mm::sort_key: the float whose key this is.
-__device__ __forceinline__ float key_value(uint32_t key) {
-  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
-}
+using mm::ilog2;
+using mm::key_value;
+using mm::tukey_accumulate;
 
 // Compare-exchange: lo <- the smaller, hi <- the larger.
 __device__ __forceinline__ void order_pair(uint32_t& lo, uint32_t& hi) {
@@ -150,21 +145,6 @@ __device__ __forceinline__ float middle(const float (&v)[P], int cnt) {
     hi = j == jh ? v[j] : hi;
   }
   return 0.5f * (lo + hi);
-}
-
-// One row's share of a Tukey IRLS step, in reciprocal form.  x - mu is
-// taken first: it is exact for rows near mu, so a row at mu keeps weight
-// a even where the MAD is floored and inv is huge.
-__device__ __forceinline__ void tukey_accumulate(float xv, float a, float mu,
-                                                 float inv, float& num,
-                                                 float& den) {
-  const float y = (xv - mu) * inv;
-  // 1 - y^2 <= 1, so saturating to [0, 1] is the clamp at 0, and it
-  // rides on the FMA
-  const float u = __saturatef(fmaf(-y, y, 1.0f));
-  const float w = a * (u * u);
-  num = fmaf(w, xv, num);
-  den += w;
 }
 
 // ---- regs ------------------------------------------------------------------

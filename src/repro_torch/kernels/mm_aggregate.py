@@ -13,15 +13,16 @@ Two hand-written CUDA kernels compute it (``csrc/``): the single-pass
 kernel, in three variants (``regs``: a column's K <= 32 values in one
 thread's registers; ``warp``: one warp per (column, n) pair, K <= 64;
 ``smem``: a block's whole (K, bm) tile in shared memory), and the
-two-pass K-major kernel for large cohorts, which sorts bk-row blocks and
-combines their statistics.  Each sits behind a wrapper here
-(``single_pass``, ``two_pass``) that launches it for a CUDA tensor and
-counts the launch in ``LAUNCHES`` (and the single-pass variant in
-``LAUNCHES_BY_VARIANT``); for a CPU tensor the wrapper runs the plain
-PyTorch version beside it (``mm_single_pass_plain``,
-``mm_two_pass_plain``), which repeats the TPU kernel's arithmetic on the
-padded operands: the sorted-order f32 cumulative weights, the crossing
-with no epsilon, the rank midpoints, and the per-block approximation.
+two-pass K-major kernel for large cohorts, in which one warp owns one
+column, sorts its bk-row blocks and combines their statistics.  Each
+sits behind a wrapper here (``single_pass``, ``two_pass``) that launches
+it for a CUDA tensor, one kernel per call, and counts the launch in
+``LAUNCHES`` (and the single-pass variant in ``LAUNCHES_BY_VARIANT``);
+for a CPU tensor the wrapper runs the plain PyTorch version beside it
+(``mm_single_pass_plain``, ``mm_two_pass_plain``), which repeats the TPU
+kernel's arithmetic on the padded operands: the sorted-order f32
+cumulative weights, the crossing with no epsilon, the rank midpoints,
+and the per-block approximation.
 
 ``launch_plan`` is the single source of truth for a launch's geometry,
 its modeled HBM traffic and the shared memory a block carves, against
@@ -31,14 +32,15 @@ row index per element at a tile of at least ``SINGLE_PASS_MIN_BLOCK_M``
 columns (its median, MAD and IRLS run one thread per (column, n) pair,
 so a narrower tile leaves most of a block's threads idle), and a mesh of
 at least 65 agents whose single-pass tile does not fit takes the
-two-pass kernel, whose sort threads own (column, row) pairs and do well
-at narrow tiles.  At N = 1 the crossover sits at K ~ 300.  Within the
+two-pass kernel, whose blocks hold ``block_m`` <= 8 columns, one warp
+each.  At N = 1 the crossover sits at K ~ 300.  Within the
 single pass, ``single_pass_variant`` picks the variant from (K, M, N)
 alone; the plan records it and the launcher never substitutes another.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -58,6 +60,15 @@ _TWO_PASS_MIN_K = 65
 # largest K block the two-pass path sorts at once (more K -> several
 # blocks -> the approximate median-of-medians init, as in the reference)
 _MAX_BLOCK_K2 = 512
+# the two-pass kernel: block_m columns a block, one warp each, at most 8;
+# its (K_pad, block_m) tile must fit, so large K takes fewer columns
+TWO_PASS_BLOCK_MS = (8, 4, 2, 1)
+# the heuristic narrows the block until M gives one tile per SM (H100 SXM)
+TWO_PASS_MIN_TILES = 132
+# K blocks a warp combines in registers; above, in shared memory
+_TWO_PASS_REG_COMBINE = 32
+# most shared memory the two-pass (n_chunk, K_pad) weight slice takes
+_TWO_PASS_WEIGHT_SLICE_BYTES = 64 * 1024
 
 # single-pass variants (csrc/mm_single_pass.cu), by their C codes
 SINGLE_PASS_VARIANTS = {"regs": 0, "warp": 1, "smem": 2}
@@ -100,15 +111,19 @@ def next_pow2(n: int) -> int:
 class LaunchPlan(NamedTuple):
     """Static geometry + modeled HBM traffic of one batched launch.
 
-    ``grid`` is (column tiles, K blocks); the kernel grid is the first
-    entry, the K blocks are a loop inside each block.  The single-pass
-    ``warp`` variant's grid counts blocks of eight (column, n) pairs, and
-    ``regs`` walks its column tiles on at most as many blocks as the card
-    holds at once.  Traffic counts what the kernel moves: each x element
-    once (plus one re-read per IRLS step when the two-pass tile cannot
-    stay resident), the weights, and the (N, M) output; it does not
-    depend on ``n_out``.  ``n_chunk`` is ``n_out``: a block's threads
-    cover every (column, n) pair at once.
+    ``grid`` is (column tiles, K blocks); the K blocks are a loop inside
+    each block.  The single-pass ``warp`` variant's grid counts blocks of
+    eight (column, n) pairs.  For ``regs`` and the two-pass kernel
+    ``grid[0]`` counts column tiles, not blocks launched: they walk their
+    tiles grid-stride on min(tiles, blocks the card holds at once)
+    blocks, a number the launcher asks of the current card and caches per
+    device (``two_pass_blocks`` reports it for a two-pass plan).
+    Traffic counts what the kernel moves: each x element once (both
+    kernels keep a column's whole tile on chip; a plan whose tile does
+    not fit raises on the card), the weights, and the (N, M) output; it
+    does not depend on ``n_out``.  ``n_chunk`` is the weight columns a
+    block holds at once: ``n_out`` on the single pass, the two-pass
+    kernel's staged (n_chunk, K_pad) weight slice.
     """
     grid: Tuple[int, int]
     block_m: int
@@ -125,7 +140,6 @@ class LaunchPlan(NamedTuple):
     num_k_blocks: int = 1
     stats_bytes: int = 0      # shared-memory pass-1 stats, never in HBM
     smem_bytes: int = 0       # shared memory one block carves
-    tile_resident: bool = True
     variant: Optional[str] = None   # single-pass variant; None for two-pass
 
     @property
@@ -167,16 +181,33 @@ def single_pass_variant(k: int, m: int, n: int = 1) -> str:
     return "smem"
 
 
-def two_pass_smem_bytes(k: int, n: int, block_m: int, block_k: int,
-                        resident: bool = True) -> int:
-    """Shared memory of the two-pass kernel: the (K_pad | bk, bm) tile,
-    the (K_pad, N) weights, (KB, N) masses, (KB, N, bm) x 2 stats and the
-    (bk, bm) uint16 row index (C: ``mm_two_pass_smem_bytes``)."""
+def two_pass_smem_bytes(k: int, n_chunk: int, block_k: int,
+                        block_m: int) -> int:
+    """Shared memory one block of the two-pass kernel carves (C:
+    ``mm_two_pass_smem_bytes``): above 32 K blocks each warp's strip of
+    next_pow2(KB) 8-byte (value, block) pairs for the combine; the
+    (K_pad, bm) f32 tile, the (n_chunk, K_pad) weight slice, (2 KB, bm)
+    block stats and (KB, n_chunk) block masses; and, with several K
+    blocks, the (K_pad, bm) uint16 row index of the sorted blocks."""
     kb = -(-k // block_k)
     k_pad = kb * block_k
-    rows = k_pad if resident else block_k
-    return (4 * (rows * block_m + k_pad * n + kb * n + 2 * kb * n * block_m)
-            + 2 * block_k * block_m)
+    strip = next_pow2(kb) if kb > _TWO_PASS_REG_COMBINE else 0
+    return (8 * block_m * strip
+            + 4 * (k_pad * block_m + n_chunk * k_pad + 2 * kb * block_m
+                   + kb * n_chunk)
+            + (2 * k_pad * block_m if kb > 1 else 0))
+
+
+def two_pass_n_chunk(k: int, n: int, block_k: int, block_m: int) -> int:
+    """Weight columns the two-pass kernel stages at once: all N while the
+    (n_chunk, K_pad) slice stays within 64 KB, else as many as do (at
+    least one), fewer while the block does not fit."""
+    k_pad = -(-k // block_k) * block_k
+    nc = max(1, min(int(n), _TWO_PASS_WEIGHT_SLICE_BYTES // (4 * k_pad)))
+    while nc > 1 and two_pass_smem_bytes(k, nc, block_k, block_m) > \
+            SMEM_BUDGET_BYTES:
+        nc -= 1
+    return nc
 
 
 def two_pass_block_k(k: int) -> int:
@@ -200,15 +231,16 @@ def launch_plan(k: int, m: int, n: int = 1, *,
                 block_m: Optional[int] = None,
                 block_k: Optional[int] = None,
                 path: Optional[str] = None,
-                num_iters: int = 10,
-                variant: Optional[str] = None) -> LaunchPlan:
+                variant: Optional[str] = None,
+                n_chunk: Optional[int] = None) -> LaunchPlan:
     """Resolve the kernel path + tile sizes (via kernels.tuning when
     unset) and derive the grid, modeled HBM traffic and shared memory of
     a (K, M) x (K, N) launch.  ``path=None`` takes the cached tuning
     choice when it names a path, else ``auto_path``.  The single-pass
-    kernel loads all K rows as one block, so ``block_k`` applies to the
-    two-pass path only; ``variant=None`` takes ``single_pass_variant``,
-    and a variant named for a K it cannot hold raises."""
+    kernel loads all K rows as one block, so ``block_k`` and ``n_chunk``
+    (None: ``two_pass_n_chunk``) apply to the two-pass path only;
+    ``variant=None`` takes ``single_pass_variant``, and a variant named
+    for a K it cannot hold raises."""
     if path is not None and path not in PATHS:
         raise ValueError(f"unknown kernel path {path!r}; known: {PATHS}")
     if variant is not None and variant not in SINGLE_PASS_VARIANTS:
@@ -218,10 +250,14 @@ def launch_plan(k: int, m: int, n: int = 1, *,
     if block_m is None or block_k is None or path is None:
         from repro_torch.kernels import tuning  # deferred: tuning sizes plans
         choice = tuning.get_choice(k, m, n=n, dtype=dtype)
-        if block_m is None:
-            block_m = choice.block_m
         if path is None:
             path = choice.path
+        if (path or auto_path(k, n)) != (choice.path or auto_path(k, n)):
+            # a tile chosen for the other path: the heuristic's for this one
+            choice = tuning.TuneChoice(*tuning.heuristic_blocks(
+                k, m, n, dtype, path=path))
+        if block_m is None:
+            block_m = choice.block_m
         if block_k is None and (choice.path or "single") == \
                 (path or auto_path(k, n)):
             block_k = choice.block_k
@@ -237,24 +273,25 @@ def launch_plan(k: int, m: int, n: int = 1, *,
     output_bytes = n * m * itemsize
 
     if path == "two_pass":
+        if block_m not in TWO_PASS_BLOCK_MS:
+            raise ValueError(f"the two-pass kernel takes block_m in "
+                             f"{TWO_PASS_BLOCK_MS}, got {block_m}")
         bk = two_pass_block_k(k) if block_k is None else int(block_k)
         if bk < 2 or bk & (bk - 1):
             raise ValueError(
                 f"two-pass block_k must be a power of two >= 2, got {bk}")
         kb = -(-k // bk)
-        resident = two_pass_smem_bytes(k, n, block_m, bk, True) \
-            <= SMEM_BUDGET_BYTES
-        passes = 1 if resident else 1 + num_iters
+        nc = two_pass_n_chunk(k, n, bk, block_m) if n_chunk is None \
+            else max(1, min(int(n_chunk), n))
         return LaunchPlan(
             grid=(tiles, kb), block_m=block_m, block_k=bk, k_pad=kb * bk,
             m_total=m_total, n_out=n,
-            input_block_fetches=tiles * kb * passes,
-            input_bytes=k * m * itemsize * passes,
+            input_block_fetches=tiles * kb,
+            input_bytes=k * m * itemsize,
             weight_bytes=weight_bytes, output_bytes=output_bytes,
-            path=path, n_chunk=n, num_k_blocks=kb,
-            stats_bytes=2 * kb * n * block_m * 4,
-            smem_bytes=two_pass_smem_bytes(k, n, block_m, bk, resident),
-            tile_resident=resident,
+            path=path, n_chunk=nc, num_k_blocks=kb,
+            stats_bytes=2 * kb * block_m * 4,
+            smem_bytes=two_pass_smem_bytes(k, nc, bk, block_m),
         )
 
     variant = variant or single_pass_variant(k, m, n)
@@ -427,6 +464,13 @@ def mm_two_pass_plain(xp: torch.Tensor, ap: torch.Tensor, *, k: int,
 
 def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
                          k: int) -> None:
+    if plan.smem_bytes > SMEM_BUDGET_BYTES:
+        raise ValueError(
+            f"{plan.path} plan needs {plan.smem_bytes} B of shared memory "
+            f"per block, over the {SMEM_BUDGET_BYTES} B a block may use")
+    if plan.path == "two_pass" and plan.block_k > _MAX_BLOCK_K2:
+        raise ValueError(f"the two-pass kernel sorts blocks of at most "
+                         f"{_MAX_BLOCK_K2} rows, got block_k={plan.block_k}")
     if x.device.type != "cuda":
         raise ValueError(f"the MM kernels run on CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -439,17 +483,12 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
             tuple(a.shape) != (k, plan.n_out) or not a.is_contiguous():
         raise ValueError(f"a must be a contiguous float32 ({k}, "
                          f"{plan.n_out}) tensor on {x.device}")
-    if plan.smem_bytes > SMEM_BUDGET_BYTES:
-        raise ValueError(
-            f"{plan.path} plan needs {plan.smem_bytes} B of shared memory "
-            f"per block, over the {SMEM_BUDGET_BYTES} B a block may use")
 
 
 def _launch_args(x, a, out, plan):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return (x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.shape[0],
-            x.shape[1], a.data_ptr(), plan.n_out, out.data_ptr(),
-            plan.block_m), stream
+            x.shape[1], a.data_ptr(), plan.n_out, out.data_ptr()), stream
 
 
 def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
@@ -467,7 +506,7 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
     args, stream = _launch_args(x, a, out, plan)
     err = build.library("mm_single_pass").mm_single_pass_launch(
-        *args, SINGLE_PASS_VARIANTS[plan.variant], num_iters, c,
+        *args, plan.block_m, SINGLE_PASS_VARIANTS[plan.variant], num_iters, c,
         int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_single_pass ({plan.variant}) launch failed: "
@@ -480,7 +519,8 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
 def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
              num_iters: int = 10, c: float = mestimators.TUKEY_C95,
              weighted: bool = True) -> torch.Tensor:
-    """Two-pass K-major MM aggregation, as ``single_pass``."""
+    """Two-pass K-major MM aggregation, as ``single_pass``: one kernel
+    launch per call, which sums the K block masses itself."""
     k, m = x.shape
     if x.device.type == "cpu":
         xp, ap = _pad_inputs(x, a, plan=plan)
@@ -491,7 +531,7 @@ def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
     args, stream = _launch_args(x, a, out, plan)
     err = build.library("mm_two_pass").mm_two_pass_launch(
-        *args, plan.block_k, int(plan.tile_resident), num_iters, c * c,
+        *args, plan.block_k, plan.n_chunk, plan.block_m, num_iters, c,
         int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_two_pass launch failed: cudaError {err}")
@@ -499,10 +539,25 @@ def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     return out
 
 
+def two_pass_blocks(plan: LaunchPlan, k: int, dtype=torch.float32,
+                    weighted: bool = True) -> int:
+    """Blocks the two-pass kernel launches for ``plan`` on the current
+    card: min(column tiles, blocks the card holds at once), asked of the
+    card and cached per device by the library.  Launches nothing."""
+    blocks = ctypes.c_int64(0)
+    err = build.library("mm_two_pass").mm_two_pass_blocks(
+        _DTYPE_CODES[_as_dtype(dtype)], k, plan.m_total, plan.n_out,
+        plan.block_k, plan.n_chunk, plan.block_m, int(weighted),
+        ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"mm_two_pass_blocks failed: cudaError {err}")
+    return blocks.value
+
+
 def _launch(x: torch.Tensor, a: torch.Tensor, *, weighted: bool,
             num_iters: int, c: float, block_m: Optional[int],
-            block_k: Optional[int], path: Optional[str] = None
-            ) -> torch.Tensor:
+            block_k: Optional[int], path: Optional[str] = None,
+            n_chunk: Optional[int] = None) -> torch.Tensor:
     """(K, M) values x (K, N) weights -> (N, M) through one kernel.
 
     Weight columns are normalized here (invalid columns become uniform):
@@ -513,7 +568,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, *, weighted: bool,
         a = location.normalize_weights(a, dtype=torch.float32)
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
     plan = launch_plan(k, m, a.shape[1], dtype=x.dtype, block_m=block_m,
-                       block_k=block_k, path=path, num_iters=num_iters)
+                       block_k=block_k, path=path, n_chunk=n_chunk)
     run = two_pass if plan.path == "two_pass" else single_pass
     return run(x, a, plan, num_iters=num_iters, c=c, weighted=weighted)
 

@@ -92,7 +92,7 @@ class AggregationEngine:
         if self.backend == "pallas":
             plan = _k.launch_plan(k, m, n, dtype=x.dtype,
                                   block_m=self.block_m, block_k=self.block_k,
-                                  path=self.path, num_iters=self.num_iters)
+                                  path=self.path)
             entry.update(block_m=plan.block_m, block_k=plan.block_k,
                          path=plan.path)
         else:

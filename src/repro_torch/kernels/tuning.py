@@ -3,8 +3,10 @@
 Counterpart of ``repro.kernels.tuning`` without the timing sweep
 (``autotune`` waits for a later slice).  ``get_choice`` returns a cached
 ``TuneChoice`` for the (K, M, N, dtype) workload on this device when one
-exists, else ``heuristic_blocks``: the widest tile, in steps of one warp
-of columns (32), whose shared memory fits a Hopper block.
+exists, else ``heuristic_blocks``: on the single pass the widest tile,
+in steps of one warp of columns (32), whose shared memory fits a Hopper
+block; on the two-pass kernel the widest block of 8, 4, 2 or 1 columns
+(one warp each) that fits and still gives every SM a tile.
 
 The cache persists across processes when ``REPRO_TORCH_TUNING_CACHE``
 names a JSON file (never the reference's ``REPRO_TUNING_CACHE``: its
@@ -128,16 +130,18 @@ def save_cache(path: Optional[str] = None) -> Optional[str]:
     return path
 
 
-def heuristic_blocks(k: int, m: int, n: int = 1,
-                     dtype=torch.float32) -> BlockChoice:
-    """Widest tile (a multiple of 32 columns, at most 256 and at most the
-    problem's width) whose shared memory fits a block on the path
-    ``auto_path`` takes.  A two-pass tile keeps the whole (K_pad, bm)
-    residency where some width allows it, else the narrowest tile that
-    stages one K block at a time."""
+def heuristic_blocks(k: int, m: int, n: int = 1, dtype=torch.float32,
+                     path: Optional[str] = None) -> BlockChoice:
+    """The tile of ``path`` (None: the one ``auto_path`` takes).  Single
+    pass: the widest (a multiple of 32 columns, at most 256 and at most
+    the problem's width) whose shared memory fits a block.  Two-pass: the
+    widest of ``TWO_PASS_BLOCK_MS`` whose block fits and whose column
+    tiles number at least ``TWO_PASS_MIN_TILES`` (one per SM), else the
+    narrowest that fits (1 where none does: the launch then raises on
+    the card)."""
     del dtype  # the kernels hold f32 tiles whatever the input dtype
-    k, n = int(k), max(int(n), 1)
-    cap = min(_mm._MAX_BLOCK_M, max(WARP, -(-int(m) // WARP) * WARP))
+    k, n, m = int(k), max(int(n), 1), int(m)
+    cap = min(_mm._MAX_BLOCK_M, max(WARP, -(-m // WARP) * WARP))
 
     def widest(model) -> int:
         bm = cap
@@ -145,10 +149,27 @@ def heuristic_blocks(k: int, m: int, n: int = 1,
             bm -= WARP
         return max(bm, WARP)
 
-    if _mm.auto_path(k, n) == "single":
+    if (path or _mm.auto_path(k, n)) == "single":
         return widest(lambda bm: _mm.single_pass_smem_bytes(k, n, bm)), None
     bk = _mm.two_pass_block_k(k)
-    return widest(lambda bm: _mm.two_pass_smem_bytes(k, n, bm, bk)), None
+    fitting = [bm for bm in _mm.TWO_PASS_BLOCK_MS
+               if _mm.two_pass_smem_bytes(
+                   k, _mm.two_pass_n_chunk(k, n, bk, bm), bk, bm)
+               <= _mm.SMEM_BUDGET_BYTES]
+    for bm in fitting:
+        if -(-m // bm) >= _mm.TWO_PASS_MIN_TILES:
+            return bm, None
+    return (fitting[-1] if fitting else 1), None
+
+
+def _kernel_takes(k: int, n: int, choice: TuneChoice) -> bool:
+    """Whether the kernel of the choice's path takes its tile: a two-pass
+    entry cached for another kernel (a bm of 32 or more, a K block over
+    512 rows) would raise at launch, so it is not used."""
+    if (choice.path or _mm.auto_path(k, n)) != "two_pass":
+        return True
+    return choice.block_m in _mm.TWO_PASS_BLOCK_MS and (
+        choice.block_k is None or choice.block_k <= _mm._MAX_BLOCK_K2)
 
 
 def get_choice(k: int, m: int, n: int = 1, dtype=torch.float32,
@@ -157,7 +178,7 @@ def get_choice(k: int, m: int, n: int = 1, dtype=torch.float32,
     if backend == "pallas":
         load_cache(force=False)
         cached = _CACHE.get(_key(k, m, n, dtype))
-        if cached is not None:
+        if cached is not None and _kernel_takes(k, n, cached):
             return cached
     return TuneChoice(*heuristic_blocks(k, m, n, dtype))
 

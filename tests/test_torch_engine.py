@@ -2,10 +2,9 @@
 
 Launch-plan invariants are those ``repro.analysis.contracts`` checks in
 the reference, restated for Hopper: input traffic does not depend on N,
-every x element is read once (once per IRLS step more only when a
-two-pass tile cannot stay resident), per-block stats never reach HBM,
-and every plan the heuristic and ``auto_path`` pick fits a block's
-232,448 B of shared memory.
+every x element is read once, per-block stats never reach HBM, and every
+plan the heuristic and ``auto_path`` pick fits a block's 232,448 B of
+shared memory.
 """
 
 import json
@@ -28,8 +27,12 @@ def test_every_auto_plan_fits_shared_memory(m):
     for k, n in GRID:
         plan = TK.launch_plan(k, m, n)
         assert plan.smem_bytes <= BUDGET, (k, n, m, plan)
-        assert plan.block_m % 32 == 0 and plan.grid[0] < 2 ** 31 - 1
+        assert plan.grid[0] < 2 ** 31 - 1
         assert plan.path == TK.auto_path(k, n)
+        if plan.path == "single":
+            assert plan.block_m % 32 == 0
+        else:
+            assert plan.block_m in TK.TWO_PASS_BLOCK_MS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -37,12 +40,12 @@ def test_every_auto_plan_fits_shared_memory(m):
 def test_input_traffic_is_n_free_and_reads_each_element_once(dtype, path):
     k, m = (32, 1000) if path == "single" else (512, 1000)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    plans = [TK.launch_plan(k, m, n, dtype=dtype, path=path, block_m=32)
+    block_m = 32 if path == "single" else 8
+    plans = [TK.launch_plan(k, m, n, dtype=dtype, path=path, block_m=block_m)
              for n in (1, 2, 4)]
     assert len({p.input_bytes for p in plans}) == 1
     assert len({p.input_block_fetches for p in plans}) == 1
     for p, n in zip(plans, (1, 2, 4)):
-        assert p.tile_resident
         assert p.input_bytes == k * m * itemsize         # each x read once
         assert p.output_bytes == n * m * itemsize
         # stats live in shared memory: not part of the HBM traffic
@@ -51,11 +54,14 @@ def test_input_traffic_is_n_free_and_reads_each_element_once(dtype, path):
             assert 0 < p.stats_bytes <= p.smem_bytes
 
 
-def test_non_resident_two_pass_counts_its_rereads():
-    plan = TK.launch_plan(2048, 1024, 1, path="two_pass", block_k=512,
-                          num_iters=10)
-    assert not plan.tile_resident and plan.smem_bytes <= BUDGET
-    assert plan.input_bytes == 2048 * 1024 * 4 * 11
+def test_two_pass_reads_x_once_at_k_2048():
+    """K = 2048 (four 512-row blocks) keeps every column's whole tile on
+    chip: x is read from HBM once, one (bk, bm) block fetch per K block
+    and column tile, whatever the IRLS depth."""
+    plan = TK.launch_plan(2048, 1024, 1, path="two_pass", block_k=512)
+    assert plan.smem_bytes <= BUDGET and plan.num_k_blocks == 4
+    assert plan.input_bytes == 2048 * 1024 * 4
+    assert plan.input_block_fetches == plan.grid[0] * 4
 
 
 def test_crossover_follows_the_shared_memory_limit():
@@ -67,9 +73,10 @@ def test_crossover_follows_the_shared_memory_limit():
     assert TK.auto_path(512, 1) == "two_pass"     # the large-cohort shape
     for m in (7, 256, 10 ** 7):
         assert TK.launch_plan(512, m, 1).path == "two_pass"
-    # K=1024 at bm=32 keeps the whole tile resident (128 KB)
-    plan = TK.launch_plan(1024, 4096, 1, block_m=32, path="two_pass")
-    assert plan.tile_resident and plan.block_k == 512 and plan.num_k_blocks == 2
+    # K=1024: two 512-row blocks, 8 columns a block
+    plan = TK.launch_plan(1024, 4096, 1, path="two_pass")
+    assert plan.block_k == 512 and plan.num_k_blocks == 2
+    assert plan.block_m == 8 and plan.smem_bytes <= BUDGET
 
 
 def test_plan_validation():

@@ -64,12 +64,12 @@ def test_two_pass_single_block_matches_kernel_and_oracle(k, m, n, weighted):
 
 def test_two_pass_plain_reads_only_valid_rows():
     """+inf sentinel rows and zero M columns never reach the estimate."""
-    x, a = make(65, 40, 1, seed=8)
-    plan = TK.launch_plan(65, 40, 1, block_m=64, path="two_pass")
+    x, a = make(65, 37, 1, seed=8)
+    plan = TK.launch_plan(65, 37, 1, block_m=8, path="two_pass")
     xp, ap = TK._pad_inputs(torch.from_numpy(x), torch.from_numpy(a),
                             plan=plan)
-    assert xp.shape == (128, 64) and bool(torch.isinf(xp[65:, :40]).all())
-    assert bool((xp[:, 40:] == 0).all())
+    assert xp.shape == (128, 40) and bool(torch.isinf(xp[65:, :37]).all())
+    assert bool((xp[:, 37:] == 0).all())
     out = TK.mm_two_pass_plain(xp, TK.location.normalize_weights(ap),
                                k=65, block_k=plan.block_k)
     assert bool(torch.isfinite(out).all())
