@@ -52,6 +52,39 @@ Phases, each printing one JSON line (any failure exits nonzero):
               one two-pass launch, checked against the plain version
               over every column, timed as the other entries.
 
+  8 serve     the streaming service (repro_torch.serve) through its
+              replay harness, as benchmarks/serve_bench.py drives the
+              JAX package: the clean, stragglers, network and mixed
+              (2 tenants sharing one cache) chaos profiles, 16 agents a
+              tenant, dim 8, k_min 8, deadline 1 s, 30 rounds, seed 0,
+              on the kernel backend.  Each profile must stay in its
+              spec's band, complete every round, admit nothing twice
+              and recover from every injected fault mode; each cohort
+              geometry is captured once across tenants; launch_failed
+              counts injected faults only.  Then a mixed replay with a
+              crash at 0.5 (no duplicate admission) and two runs of one
+              mixed replay, whose journals must be identical bytes.
+  9 serve_width  the service at Qwen3-0.6B's full width (M =
+              751,894,528, every layer): 8 agents' payloads made on the
+              card, agent 7 shifted by 1000, k_min 8, three full
+              cohorts.  One capture, three graph replays; agent 7 an
+              outlier each time; the first commit bit-equal to an eager
+              AggregationEngine.aggregate of the same cohort and within
+              the parity tolerance of the plain version over every
+              column.  Per commit: submit-to-commit time and the device
+              times of staging, replay, outlier check and clip.
+ 10 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
+              layer (M = 15,730,944), the last 16 agents shifted by
+              1000, two commits: the single-pass smem variant, held to
+              its plain version.
+
+The service's launches are CUDA-graph replays: the kernel wrappers
+count the warm-up launch before each capture, and each replay adds its
+launch to their counts (ops.LaunchProgram.replay); the serve entries of
+the kernels line take their launches from the service's own count of
+replays.  A serve entry's ``ms`` is one event pair around back-to-back
+replays of the service's program, ``call_ms`` one replay at a time.
+
 Then one {"kernels": [...]} line, the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  A kernel's ``ms`` is one CUDA-event
 pair around 50 back-to-back launches (10 for the 256-agent batch and
@@ -87,7 +120,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
-          "cohort_width")
+          "cohort_width", "serve", "serve_width", "serve_cohort")
 
 # Qwen3-0.6B (configs/qwen3_0p6b.py) parameter tree: leaf shapes
 QWEN3_0P6B_SHAPES = {
@@ -149,6 +182,21 @@ TWO_PASS_CASES = (
 # over the parameters of one Qwen3-0.6B decoder layer, the last 64
 # (12.5%) shifted by 1000
 COHORT_K, COHORT_BAD = 512, 64
+# the streaming service's cohorts: benchmarks/serve_bench.py's rows (the
+# mixed profile with two tenants), and the 128-client cohort that the
+# service aggregates over one decoder layer, the last 16 shifted by 1000
+SERVE_PROFILES = (("clean", 1), ("stragglers", 1), ("network", 1),
+                  ("mixed", 2))
+SERVE_ROUNDS = 30
+SERVE_COHORT_K, SERVE_COHORT_BAD = 128, 16
+
+
+def layer_width() -> int:
+    """Parameters of one Qwen3-0.6B decoder layer: each blocks.* leaf of
+    the table divided by its 28 layers."""
+    shapes, _ = qwen3_shapes()
+    return sum(math.prod(sh[1:]) for sh in shapes if len(sh) > 1
+               and sh[0] == 28)
 
 
 def qwen3_shapes():
@@ -750,10 +798,7 @@ class Smoke:
     def cohort_width(self):
         torch = self.torch
         from repro_torch.kernels import mm_aggregate as mk, ops
-        shapes, _ = qwen3_shapes()
-        # one decoder layer: each blocks.* leaf divided by its 28 layers
-        m = sum(math.prod(sh[1:]) for sh in shapes if len(sh) > 1
-                and sh[0] == 28)
+        m = layer_width()
         k = COHORT_K
         torch.cuda.empty_cache()  # the earlier phases' cached blocks
         g = torch.Generator(device=self.dev).manual_seed(3)
@@ -793,6 +838,292 @@ class Smoke:
               "block_k": plan.block_k, "smem_bytes": plan.smem_bytes,
               "blocks": mk.two_pass_blocks(plan, k, weighted=False),
               "max_memory_allocated": peak})
+
+    # -- the streaming service ---------------------------------------------
+
+    def measure_program(self, key, label, program, launches, plain_err,
+                        plain_ms, launches_timed=10):
+        """A serve entry of the kernels line: the service's launch
+        program (a captured CUDA graph) timed as the other entries time
+        their kernel -- ``ms`` over back-to-back replays, ``call_ms`` one
+        replay at a time, ``profiler_ms`` torch.profiler's device time
+        of a replay -- beside the plain check its phase made
+        (``plain_err``, ``plain_ms``) and the launches of the service's
+        run (its replays)."""
+        plan = program.plan
+        k, m = program.x.shape
+        call_ms, _ = self.not_counted(lambda: self.time_ms(program.replay))
+        ms, _ = self.not_counted(
+            lambda: self.kernel_ms(program.replay, launches_timed))
+        prof, by_name = self.not_counted(lambda: self.profiler_ms(
+            program.replay, launches=3 if ms > 10 else 10))
+        if prof is None:
+            by_name = {"note": "torch.profiler attributed no device time "
+                               "to the graph replay; ms and call_ms are "
+                               "CUDA-event times"}
+        t, by = bound(plan.total_bytes, mm_ops(k, m, 1, True))
+        self.kernels[key] = dict(
+            name=key, shape=label, variant=plan.variant, launches=launches,
+            source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
+            replaces="src/repro/kernels/mm_aggregate.py:243",
+            max_abs_err=plain_err, ms=ms, call_ms=call_ms, profiler_ms=prof,
+            profiler_kernels=by_name, plain_ms=plain_ms, bound_ms=t,
+            bound_by=by, library_ms=None, block_m=plan.block_m,
+            block_k=plan.block_k, n_chunk=plan.n_chunk, graph_replay=True)
+        return self.kernels[key]
+
+    def plain_over(self, x, a, est, chunk):
+        """(plain ms, max |d|) of the single-pass plain version over every
+        column of x (K, M) with weights a (K,), ``chunk`` columns at a
+        time, against the estimate ``est`` (M,)."""
+        from repro_torch.core import location
+        from repro_torch.kernels import mm_aggregate as mk
+        k, m = x.shape
+        aw = location.normalize_weights(a.reshape(k, 1), dtype=self.torch.float32)
+        plan = mk.launch_plan(k, m, 1)
+        return self.plain_check(x, aw, est.reshape(1, -1), plan, True, chunk)
+
+    def serve(self):
+        import dataclasses
+        from repro_torch.kernels import mm_aggregate as mk, ops
+        from repro_torch.scenarios.spec import ScenarioSpec
+        from repro_torch.serve import CHAOS_PROFILES, ServeConfig, replay
+        cfg = ServeConfig(k_min=8, deadline_s=1.0, backend="pallas")
+
+        def run(profile, tenants, chaos=None):
+            spec = ScenarioSpec(
+                name=f"serve-{profile}", paradigm="federated",
+                num_agents=16 * tenants, dim=8, num_steps=SERVE_ROUNDS,
+                step_size=0.05, local_steps=3)
+            return replay(spec, chaos=chaos or CHAOS_PROFILES[profile],
+                          serve=cfg, rounds=SERVE_ROUNDS, seed=0,
+                          tenants=tenants, device="cuda")
+
+        results, counts, variants = self.main_path(
+            lambda: [run(p, t) for p, t in SERVE_PROFILES])
+        rows, replays, captures = [], 0, 0
+        for (profile, tenants), res in zip(SERVE_PROFILES, results):
+            row = res.to_row()
+            tr, c = res.transport, row["counters"]
+            fault = "launch_fault" in res.chaos.fault_modes()
+            ok = (not row["broke_down"]
+                  and row["rounds_completed"] == SERVE_ROUNDS
+                  and row["duplicate_admissions"] == 0
+                  and all(v > 0 for v in row["recoveries"].values())
+                  and tr["exec_cache_compiles"] == tr["exec_cache_keys"]
+                  and tr["exec_cache_max_compiles_per_key"] == 1
+                  and row["post_warmup_cache_hit"]
+                  # a launch that fails other than by injection raises;
+                  # what is counted failed exhausted injected faults
+                  and c.get("launch_attempts_exhausted", 0)
+                  == c.get("launch_failed", 0) * cfg.retry.max_attempts
+                  and (fault or c.get("launch_failed", 0) == 0))
+            replays += tr["exec_cache_replays"]
+            captures += tr["exec_cache_compiles"]
+            rows.append({
+                "profile": profile, "tenants": tenants, "ok": ok,
+                "steady_msd": row["steady_msd"],
+                "breakdown_level": row["breakdown_level"],
+                "rounds_completed": row["rounds_completed"],
+                "duplicate_admissions": row["duplicate_admissions"],
+                "recoveries": row["recoveries"],
+                "latency_p50": row["latency_p50"],
+                "latency_p95": row["latency_p95"],
+                "latency_p99": row["latency_p99"],
+                "launch_wall_p50": row["launch_wall_p50"],
+                "updates_per_sec": row["updates_per_sec"],
+                "wall_s": row["wall_s"],
+                "exec_cache_keys": tr["exec_cache_keys"],
+                "exec_cache_compiles": tr["exec_cache_compiles"],
+                "exec_cache_hits": tr["exec_cache_hits"],
+                "exec_cache_replays": tr["exec_cache_replays"],
+                "launch_failed": c.get("launch_failed", 0),
+                "launch_recovered": c.get("launch_recovered", 0),
+                "launch_audit": res.launch_audit})
+        for row in rows:
+            emit(dict(row, phase="serve"))
+        assert all(r["ok"] for r in rows), [r for r in rows if not r["ok"]]
+        # each replay launches the kernel once, each capture warmed it up
+        assert counts == {"single_pass": replays + captures,
+                          "two_pass": 0}, (counts, replays, captures)
+        assert variants["warp"] == counts["single_pass"], variants
+        crash = run("mixed", 2, dataclasses.replace(
+            CHAOS_PROFILES["mixed"], crash_restart_frac=(0.5,)))
+        assert crash.duplicate_admissions == 0 and \
+            crash.crash_restarts == 2, crash.to_row()
+        again = [run("mixed", 2) for _ in range(2)]
+        same = all(again[0].journals[n].dump() == again[1].journals[n].dump()
+                   for n in again[0].journals)
+        assert same, "two runs of one replay wrote different journals"
+        # the cohort's launch program, timed on a seeded cohort
+        engine = ops.get_engine(num_iters=cfg.num_iters, backend=cfg.backend)
+        program = self.not_counted(lambda: engine.lower_launch(
+            8, 8, self.torch.float32, device="cuda").compile())
+        g = self.torch.Generator(device=self.dev).manual_seed(4)
+        x = self.torch.randn((8, 8), generator=g, device=self.dev)
+        x[7] += 1000.0
+        a = self.torch.rand((8,), generator=g, device=self.dev) + 0.5
+        est = self.not_counted(lambda: program(x, a)).clone()
+        pms, err = self.plain_over(x, a, est, None)
+        assert err <= 1e-5 * 1001.0, err
+        entry = self.measure_program(
+            "mm_single_pass (serve replay)",
+            "K=8 M=8 N=1 f32 (serve_bench cohorts, graph replay)", program,
+            replays, err, pms, launches_timed=50)
+        emit({"phase": "serve_replay", "replays": replays,
+              "captures": captures, "launches": counts, "variants": variants,
+              "crash_duplicate_admissions": crash.duplicate_admissions,
+              "crash_restarts": crash.crash_restarts,
+              "journals_identical": same, "ms": entry["ms"],
+              "call_ms": entry["call_ms"],
+              "profiler_ms": entry["profiler_ms"],
+              "profiler_kernels": entry["profiler_kernels"],
+              "bound_ms": entry["bound_ms"], "plan_variant": program.plan.variant})
+
+    def _serve_cohorts(self, k, m, bad, cohorts, seed, check):
+        """A service at k_min = k over width m on the card: ``cohorts``
+        full cohorts of k payloads made on the card (the last ``bad``
+        shifted by 1000).  ``check(svc)`` runs (uncounted) after the
+        first commit, while the static buffer still holds its cohort.
+        Returns (service, per-commit rows, launch counts, variants)."""
+        torch = self.torch
+        from repro_torch.serve import (AgentUpdate, AggregationService,
+                                       ServeConfig, SimClock)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        svc = AggregationService(
+            torch.zeros((m,), device=self.dev),
+            config=ServeConfig(k_min=k, deadline_s=1.0, backend="pallas"),
+            clock=SimClock(), device="cuda")
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        out = []
+
+        def run():
+            for c in range(cohorts):
+                for agent in range(k):
+                    payload = torch.randn((m,), generator=g, device=self.dev)
+                    if agent >= k - bad:
+                        payload += 1000.0
+                    if agent == k - 1:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    svc.submit(AgentUpdate(agent_id=agent, round=svc.round,
+                                           payload=payload, seq=c + 1))
+                    del payload
+                torch.cuda.synchronize()
+                commit_ms = (time.perf_counter() - t0) * 1e3
+                (commit,) = svc.drain_commits()
+                out.append({"kind": commit.kind, "round": commit.round,
+                            "submit_to_commit_ms": commit_ms,
+                            "device_ms": svc.phase_ms(),
+                            "compile_s": commit.compile_s,
+                            "cache_hit": commit.cache_hit,
+                            "launch_wall_s": commit.launch_wall_s,
+                            "clipped": commit.clipped,
+                            "outliers": list(commit.outliers)})
+                if c == 0:
+                    out[0]["check"] = self.not_counted(lambda: check(svc))
+
+        _, counts, variants = self.main_path(run)
+        return svc, out, counts, variants
+
+    def _first_commit_check(self, svc, chunk):
+        """The first commit's estimate (the model: no trust history yet,
+        so no clip) against an eager AggregationEngine.aggregate of the
+        same cohort and weights (bit for bit) and the plain version."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        (program,) = svc.exec_cache.programs()
+        x = program.x
+        est = svc.model
+        a = torch.ones((x.shape[0],), device=self.dev)
+        eager = ops.get_engine(num_iters=10, backend="pallas").aggregate(x, a)
+        equal = bool(torch.equal(eager, est))
+        del eager
+        plain_ms, err = self.plain_over(x, a, est, chunk)
+        return {"eager_equal": equal, "plain_ms": plain_ms,
+                "max_abs_err_all_columns": err}
+
+    def serve_width(self):
+        shapes, _ = qwen3_shapes()
+        m = sum(math.prod(s) for s in shapes)
+        k = WIDTH_AGENTS
+        svc, commits, counts, variants = self._serve_cohorts(
+            k, m, 1, 3, 5, lambda s: self._first_commit_check(s, 2 ** 24))
+        peak = self.torch.cuda.max_memory_allocated()
+        check = commits[0].pop("check")
+        stats = svc.exec_cache.stats()
+        for c in commits:
+            emit(dict(c, phase="serve_width"))
+        assert [c["kind"] for c in commits] == ["aggregated"] * 3, commits
+        assert svc.telemetry.counters["launch_failed"] == 0  # none injected
+        assert all(c["outliers"] == [k - 1] for c in commits), commits
+        assert (stats["exec_cache_compiles"], stats["exec_cache_hits"],
+                stats["exec_cache_replays"]) == (1, 2, 3), stats
+        assert svc.telemetry.launch_replays == 3
+        assert counts == {"single_pass": 4, "two_pass": 0}, counts
+        assert variants["regs"] == 4, variants
+        assert check["eager_equal"], check
+        assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
+        (program,) = svc.exec_cache.programs()
+        entry = self.measure_program(
+            "mm_single_pass (serve, Qwen3-0.6B width)",
+            f"K={k} M={m} N=1 f32 (service, graph replay)", program,
+            stats["exec_cache_replays"], check["max_abs_err_all_columns"],
+            check["plain_ms"])
+        emit({"phase": "serve_width", "m": m, "k": k, "stats": stats,
+              "launches": counts, "variant": program.plan.variant,
+              "eager_equal": check["eager_equal"],
+              "max_abs_err_all_columns": check["max_abs_err_all_columns"],
+              "ms": entry["ms"], "call_ms": entry["call_ms"],
+              "profiler_ms": entry["profiler_ms"],
+              "profiler_kernels": entry["profiler_kernels"],
+              "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+              "bound_by": entry["bound_by"],
+              "compile_s": commits[0]["compile_s"],
+              "max_memory_allocated": peak})
+        del svc, program
+
+    def serve_cohort(self):
+        m, k, bad = layer_width(), SERVE_COHORT_K, SERVE_COHORT_BAD
+        svc, commits, counts, variants = self._serve_cohorts(
+            k, m, bad, 2, 6, lambda s: self._first_commit_check(s, 2 ** 20))
+        peak = self.torch.cuda.max_memory_allocated()
+        check = commits[0].pop("check")
+        stats = svc.exec_cache.stats()
+        for c in commits:
+            emit(dict(c, phase="serve_cohort"))
+        assert [c["kind"] for c in commits] == ["aggregated"] * 2, commits
+        assert svc.telemetry.counters["launch_failed"] == 0  # none injected
+        assert all(c["outliers"] == list(range(k - bad, k))
+                   for c in commits), commits
+        assert (stats["exec_cache_compiles"],
+                stats["exec_cache_replays"]) == (1, 2), stats
+        assert counts == {"single_pass": 3, "two_pass": 0}, counts
+        assert variants["smem"] == 3, variants
+        assert check["eager_equal"], check
+        assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
+        (program,) = svc.exec_cache.programs()
+        assert program.plan.variant == "smem", program.plan
+        entry = self.measure_program(
+            "mm_single_pass (serve, 128-client cohort layer)",
+            f"K={k} M={m} N=1 f32 (service, graph replay)", program,
+            stats["exec_cache_replays"], check["max_abs_err_all_columns"],
+            check["plain_ms"])
+        emit({"phase": "serve_cohort", "m": m, "k": k, "stats": stats,
+              "launches": counts, "variant": program.plan.variant,
+              "block_m": program.plan.block_m,
+              "smem_bytes": program.plan.smem_bytes,
+              "eager_equal": check["eager_equal"],
+              "max_abs_err_all_columns": check["max_abs_err_all_columns"],
+              "ms": entry["ms"], "call_ms": entry["call_ms"],
+              "profiler_ms": entry["profiler_ms"],
+              "profiler_kernels": entry["profiler_kernels"],
+              "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+              "bound_by": entry["bound_by"],
+              "compile_s": commits[0]["compile_s"],
+              "max_memory_allocated": peak})
+        del svc, program
 
     def kernels_line(self) -> None:
         rows = []

@@ -14,6 +14,12 @@ Names kept from the reference, and what they mean here:
   * ``ScenarioSpec`` fields and values: one spec means the same run in
     both packages, with different random streams.
 
+  * ``ServeConfig.backend`` of the streaming service (``serve/``) takes
+    the same two names, and its ``interpret`` field (the reference's
+    Pallas interpret switch) has no effect; on the card the service
+    launches each cohort by replaying a CUDA graph captured once per
+    cohort geometry.
+
 Entry points take ``device`` and default to ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.  Random draws go
 through explicit ``torch.Generator`` objects seeded from the spec.

@@ -485,6 +485,23 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
                          f"{plan.n_out}) tensor on {x.device}")
 
 
+def count_launch(plan: LaunchPlan, n: int = 1) -> None:
+    """Add ``n`` launches of the plan's kernel to the counts."""
+    if plan.path == "two_pass":
+        LAUNCHES["two_pass"] += n
+    else:
+        LAUNCHES["single_pass"] += n
+        LAUNCHES_BY_VARIANT[plan.variant] += n
+
+
+def _count_launch(plan: LaunchPlan) -> None:
+    # a launch made while a CUDA graph captures the stream runs only when
+    # the graph replays; the launch program counts it there
+    # (ops.LaunchProgram.replay)
+    if not torch.cuda.is_current_stream_capturing():
+        count_launch(plan)
+
+
 def _launch_args(x, a, out, plan):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return (x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.shape[0],
@@ -511,8 +528,7 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     if err:
         raise RuntimeError(f"mm_single_pass ({plan.variant}) launch failed: "
                            f"cudaError {err}")
-    LAUNCHES["single_pass"] += 1
-    LAUNCHES_BY_VARIANT[plan.variant] += 1
+    _count_launch(plan)
     return out
 
 
@@ -535,7 +551,7 @@ def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
         int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_two_pass launch failed: cudaError {err}")
-    LAUNCHES["two_pass"] += 1
+    _count_launch(plan)
     return out
 
 

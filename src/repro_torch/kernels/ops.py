@@ -17,8 +17,16 @@ buffer is the only copy of the tree that the launch makes.
 
 Inside a ``record_workloads()`` scope every launch appends its resolved
 workload (K, M, N, dtype, backend, block sizes, path) once; the scenario
-runner builds its launch audit from those records.  ``lower_launch``,
-``lower_tree`` and leaf donation wait for the serving slice.
+runner builds its launch audit from those records.
+
+Standalone launches (``lower_launch``): the launch half of ``aggregate``
+for one fixed cohort geometry, with cohort assembly left to the caller
+(the streaming service).  ``lower_launch(k, m, dtype).compile()`` gives
+a ``LaunchProgram``: on a CUDA device the launch is warmed up once and
+captured into a CUDA graph over a static (k, m) cohort buffer and a
+(k,) weight buffer, and every call copies a cohort into them and
+replays the graph -- one capture per geometry, no per-cohort host work
+in the launch.  ``lower_tree`` and leaf donation are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import pytree
+from repro_torch import devices, pytree
 from repro_torch.core import location, mestimators
 from repro_torch.kernels import mm_aggregate as _k
 
@@ -86,13 +94,19 @@ class AggregationEngine:
         self.backend = backend
         self.path = path
 
+    def _plan(self, k: int, m: int, n: int = 1, dtype=torch.float32):
+        """The launch plan of a (k, m) x (k, n) launch of this engine (None
+        on the ``jnp`` backend, which launches no kernel)."""
+        if self.backend != "pallas":
+            return None
+        return _k.launch_plan(k, m, n, dtype=dtype, block_m=self.block_m,
+                              block_k=self.block_k, path=self.path)
+
     def _record(self, x: torch.Tensor, k: int, m: int, n: int = 1) -> None:
         entry = {"k": int(k), "m": int(m), "n": int(n),
                  "dtype": _k.dtype_name(x.dtype), "backend": self.backend}
-        if self.backend == "pallas":
-            plan = _k.launch_plan(k, m, n, dtype=x.dtype,
-                                  block_m=self.block_m, block_k=self.block_k,
-                                  path=self.path)
+        plan = self._plan(k, m, n, x.dtype)
+        if plan is not None:
             entry.update(block_m=plan.block_m, block_k=plan.block_k,
                          path=plan.path)
         else:
@@ -151,6 +165,135 @@ class AggregationEngine:
             outs.append(agg[off:off + n].reshape(leaf.shape[1:]).to(leaf.dtype))
             off += n
         return pytree.unflatten(treedef, outs)
+
+    # -- standalone launches (cohort assembly decoupled) -------------------
+
+    def lower_launch(self, k: int, m: int, dtype=torch.float32, *,
+                     weighted: bool = True, donate: bool = False,
+                     device="cuda") -> "LoweredLaunch":
+        """The one-cohort launch for a fixed geometry, not yet compiled:
+        ``(x (k, m) dtype, a (k,) f32) -> (m,) dtype``.
+
+        The caller stages each cohort into the program's static buffers
+        and launches the compiled program for every admitted cohort.  The
+        workload resolution (tuning-cache winner or heuristic, the
+        single<->two-pass path) is ``aggregate``'s, and the compile
+        records it for launch audits.  ``donate`` is the reference's flag
+        for handing the cohort buffer to the launch; here the cohort
+        buffer is always the program's own static input, which the
+        caller re-stages on every attempt, so the flag changes nothing
+        and is kept so that one call means the same in both packages."""
+        del donate
+        dev = devices.resolve(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return LoweredLaunch(self, int(k), int(m), _k._as_dtype(dtype),
+                             weighted=weighted, device=dev)
+
+
+class LaunchProgram:
+    """A compiled one-cohort launch (``AggregationEngine.lower_launch``).
+
+    ``x`` (k, m) and ``a`` (k,) are its static inputs.  ``stage`` copies
+    a cohort into them; ``replay`` runs the launch on them and returns
+    the (m,) estimate.  On a CUDA device the launch is a captured CUDA
+    graph and the estimate is the graph's own output tensor, overwritten
+    by the next replay of this program: a caller that keeps it clones it
+    first.  The wrappers do not count the launch they make while the
+    graph is captured; each replay adds its kernel launch to their
+    counts (``mm_aggregate.LAUNCHES``).  On the CPU the program calls the
+    engine's launch (the kernels' plain versions) on the static inputs.
+    """
+
+    def __init__(self, launch, x: torch.Tensor, a: torch.Tensor, plan):
+        self._launch = launch
+        self.x = x
+        self.a = a
+        self.plan = plan
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.replays = 0
+
+    def stage(self, rows, a: Optional[torch.Tensor] = None) -> None:
+        """Copy k rows (a (k, m) tensor, or k tensors of m values each)
+        and, for a weighted program, the (k,) weights into the static
+        inputs."""
+        if len(rows) != self.x.shape[0]:
+            raise ValueError(f"the program takes {self.x.shape[0]} rows, "
+                             f"got {len(rows)}")
+        for dst, row in zip(self.x, rows):
+            dst.copy_(row.reshape(-1))
+        if a is not None:
+            self.a.copy_(a.reshape(-1))
+
+    def replay(self) -> torch.Tensor:
+        """Run the launch on the staged inputs; asynchronous on the card."""
+        if self.graph is None:
+            out = self._launch()
+        else:
+            self.graph.replay()
+            out = self.out
+            if self.plan is not None:
+                _k.count_launch(self.plan)
+        self.replays += 1
+        return out
+
+    def __call__(self, x, a: Optional[torch.Tensor] = None) -> torch.Tensor:
+        self.stage(x, a)
+        return self.replay()
+
+
+class LoweredLaunch:
+    """``lower_launch``'s result; ``compile`` builds the program."""
+
+    def __init__(self, engine: AggregationEngine, k: int, m: int,
+                 dtype: torch.dtype, *, weighted: bool,
+                 device: torch.device):
+        self.engine = engine
+        self.k, self.m, self.dtype = k, m, dtype
+        self.weighted = weighted
+        self.device = device
+
+    def static_inputs(self):
+        """Fresh zeroed (x (k, m), a (k,)) buffers for this geometry."""
+        return (torch.zeros((self.k, self.m), dtype=self.dtype,
+                            device=self.device),
+                torch.ones((self.k,), dtype=torch.float32,
+                           device=self.device))
+
+    def compile(self, inputs=None) -> LaunchProgram:
+        """The launch program over ``inputs`` (x, a) -- buffers of this
+        geometry on this device, which several programs may share (the
+        service shares them between the engines of one geometry) -- or
+        over fresh ones.  On a CUDA device: one warm-up launch on a side
+        stream (it loads the kernel library, opts the kernel in to its
+        shared memory and asks its occupancy, none of which may happen
+        during a capture), then the capture."""
+        engine = self.engine
+        x, a = inputs if inputs is not None else self.static_inputs()
+        if tuple(x.shape) != (self.k, self.m) or x.dtype != self.dtype \
+                or tuple(a.shape) != (self.k,) or x.device != self.device:
+            raise ValueError(
+                f"static inputs must be x ({self.k}, {self.m}) {self.dtype} "
+                f"and a ({self.k},) on {self.device}")
+        engine._record(x, self.k, self.m)
+        weights = a if self.weighted else None
+        program = LaunchProgram(lambda: engine.aggregate(x, weights), x, a,
+                                engine._plan(self.k, self.m, 1, self.dtype))
+        if self.device.type != "cuda":
+            return program
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            program._launch()
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = program._launch()
+        program.graph, program.out = graph, out
+        return program
 
 
 def stage_leaves(leaves) -> torch.Tensor:

@@ -198,5 +198,15 @@ def set_blocks(k: int, m: int, n: int, dtype, choice) -> None:
     _CACHE[_key(k, m, n, dtype)] = TuneChoice(int(choice[0]), bk, kpath)
 
 
+def cache_state() -> tuple:
+    """Hashable fingerprint of the tuning state that block/path
+    resolution depends on.  Anything that caches a launch program whose
+    geometry came from ``get_choice`` (the service's executable cache)
+    keys on it: a new winner or another $REPRO_TORCH_TUNING_CACHE would
+    otherwise serve a program built for the old geometry."""
+    load_cache(force=False)
+    return (tuple(sorted(_CACHE.items())), cache_path())
+
+
 def clear_cache() -> None:
     _CACHE.clear()
