@@ -77,6 +77,33 @@ Phases, each printing one JSON line (any failure exits nonzero):
               layer (M = 15,730,944), the last 16 agents shifted by
               1000, two commits: the single-pass smem variant, held to
               its plain version.
+ 11 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
+              1024, vocab 151,936 padded to 152,064, 751,894,528 f32
+              parameters in 14 leaves, bf16 activations) randomly
+              initialised on the card, trained 3 steps by the Mode A step
+              launch.train builds: K = 8 agents of one 1024-token
+              sequence each, agent 7 additive at +1000, rs_mm on the
+              kernels, Adam with clip 1.0, the consensus metric.  Per
+              step: host ms, the device times of its phases, loss,
+              grad_norm and launches by variant (14 a step: 11 regs,
+              3 warp) and by (K, M, N), which must be each leaf's shape
+              once.  The host's CPU model, cores and load as /proc
+              reports them; one agent's forward and backward with the
+              host's operators traced: its host time by operator.  Gates:
+              in step 1 every
+              leaf's estimate is within 1e-5 x max(1, |estimate|_inf) and
+              within 1e-5 x |estimate|_inf of the plain version on the
+              same stack (each leaf's RMS |estimate| printed beside), and
+              within 1 of the benign agents' mean over
+              all 751,894,528 coordinates; loss and grad_norm finite, the
+              first loss within 1.5 of ln(151,936).
+ 12 lm_serve  make_prefill_step and make_decode_step at the same size:
+              batch 4, a 512-token prompt prefilled (timed), then fed
+              through the decode step into the bf16 KV cache, then 32
+              greedy tokens (ms per token).  Gate: the decode logits of
+              the first 16 positions, and of the last prompt position
+              against the prefill's, within 2^-4 x max(1, |logits|_inf)
+              of the full-sequence forward's.
 
 The service's launches are CUDA-graph replays: the kernel wrappers
 count the warm-up launch before each capture, and each replay adds its
@@ -95,7 +122,8 @@ call's device time by torch.profiler: the sum over every kernel the call
 runs of its device time per launch (``profiler_kernels`` gives each
 kernel's name and share).  Each entry of the kernels line is one
 main-path run (the paper and federated scenarios, the large cohort and
-its layer-wide launch, the tree launch, the diffusion batches) and its
+its layer-wide launch, the tree launch, the diffusion batches, the LM
+train steps: one entry per distinct (8, M, 1) leaf shape) and its
 launches are that run's own
 count: every count is set to 0 just before the run and read just after;
 launches made to time a kernel or compare it with its plain version are
@@ -120,7 +148,8 @@ HERE = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
-          "cohort_width", "serve", "serve_width", "serve_cohort")
+          "cohort_width", "serve", "serve_width", "serve_cohort", "lm_train",
+          "lm_serve")
 
 # Qwen3-0.6B (configs/qwen3_0p6b.py) parameter tree: leaf shapes
 QWEN3_0P6B_SHAPES = {
@@ -189,6 +218,21 @@ SERVE_PROFILES = (("clean", 1), ("stragglers", 1), ("network", 1),
                   ("mixed", 2))
 SERVE_ROUNDS = 30
 SERVE_COHORT_K, SERVE_COHORT_BAD = 128, 16
+# the LM substrate at Qwen3-0.6B's full size: launch.train's arguments
+# for K = 8 agents, one sequence of 1024 tokens each (two q_chunk = 512
+# chunks), agent 7 additive at +1000, 3 steps; and the serve shape
+LM_TRAIN_ARGS = ("--arch", "qwen3-0.6b", "--full-config", "--agents", "8",
+                 "--use-kernel", "--malicious", "1", "--attack", "additive",
+                 "--delta", "1000", "--aggregation", "rs_mm", "--steps", "3",
+                 "--batch", "8", "--seq", "1024")
+QWEN3_0P6B_PARAMS = 751_894_528
+LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_TOKENS = 4, 512, 32
+LM_SERVE_CHECKED = 16      # decode positions held to the forward's logits
+# bf16 decode against the full-sequence forward: the two paths round
+# their products at different shapes through 28 layers, so the logits
+# may differ by a few bf16 steps; 2^-4 of the largest logit is 16 ulps
+# at its magnitude
+LM_SERVE_TOL = 2.0 ** -4
 
 
 def layer_width() -> int:
@@ -204,6 +248,21 @@ def qwen3_shapes():
     from repro_torch import pytree
     return pytree.flatten(QWEN3_0P6B_SHAPES,
                           is_leaf=lambda t: isinstance(t, tuple))
+
+
+def host_info() -> dict:
+    """The host a step ran on: its CPU model, the cores this process may
+    use, and the load average as the phase ends."""
+    import os
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), None)
+    except OSError:
+        pass
+    return {"cpu": model, "cores": len(os.sched_getaffinity(0)),
+            "loadavg": os.getloadavg()}
 
 
 def emit(obj) -> None:
@@ -266,6 +325,9 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.kernels = {}          # entry name -> kernels-line dict
         self.parity_err = {"single_pass": 0.0, "two_pass": 0.0}
+        self.busy_kernels = None   # device_busy_share's last kernel count
+        self.busy_top = None       # and its top kernels by device time
+        self.by_shape = {}         # main_path's launches by (kernel, K, M, N)
 
     # -- helpers -----------------------------------------------------------
 
@@ -324,17 +386,19 @@ class Smoke:
     @staticmethod
     def _counts():
         from repro_torch.kernels import mm_aggregate as mk
-        return (mk.LAUNCHES, mk.LAUNCHES_BY_VARIANT)
+        return (mk.LAUNCHES, mk.LAUNCHES_BY_VARIANT, mk.LAUNCHES_BY_SHAPE)
 
     def main_path(self, fn):
         """Run fn with every launch count set to 0; (result, its counts,
-        the single-pass launches by variant)."""
+        the single-pass launches by variant).  Its launches by (variant
+        or "two_pass", K, M, N) are left in ``self.by_shape``."""
         for counts in self._counts():
-            for key in counts:
-                counts[key] = 0
+            counts.update(dict.fromkeys(counts, 0))
+        self._counts()[2].clear()
         result = fn()
         self.torch.cuda.synchronize()
-        launches, by_variant = self._counts()
+        launches, by_variant, by_shape = self._counts()
+        self.by_shape = dict(by_shape)
         return result, dict(launches), dict(by_variant)
 
     def not_counted(self, fn):
@@ -344,6 +408,7 @@ class Smoke:
             return fn()
         finally:
             for counts, old in zip(self._counts(), saved):
+                counts.clear()
                 counts.update(old)
 
     def measure(self, key, label, x, a, plan, counts, by_variant,
@@ -411,14 +476,17 @@ class Smoke:
             del xc, xp, want
         return plain_ms, err
 
-    def device_busy_share(self, fn):
+    def device_busy_share(self, fn, cpu: bool = True):
         """Share of fn's wall time the card spent in kernels, from
-        torch.profiler; None where the profiler reports no device time."""
+        torch.profiler (tracing the host's operators too unless ``cpu``
+        is False); None where the profiler reports no device time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CUDA]
+        if cpu:
+            activities.insert(0, ProfilerActivity.CPU)
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=activities) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
@@ -426,9 +494,41 @@ class Smoke:
         except Exception as exc:  # the share is reported, never required
             print(f"profiler unavailable: {exc!r}", file=sys.stderr)
             return None
-        busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                      for e in prof.key_averages())
+        timed = [e for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0.0)]
+        busy_us = sum(e.self_device_time_total for e in timed)
+        # kernels launched in the window, by the device-timed events, and
+        # the eight that took the most device time (ms, launches)
+        self.busy_kernels = sum(e.count for e in timed)
+        self.busy_top = {e.key[:80]: (e.self_device_time_total * 1e-3, e.count)
+                         for e in sorted(timed, key=lambda e:
+                                         -e.self_device_time_total)[:8]}
         return (busy_us * 1e-6 / wall) if busy_us > 0 else None
+
+    def host_profile(self, fn, top: int = 15) -> dict:
+        """fn once under torch.profiler with the host's operators and the
+        CUDA runtime calls traced: its wall ms (the tracing slows it), the
+        seconds the profiler's summary took, the host's self time summed
+        over every event, and the ``top`` events by self host time (ms,
+        count)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        events = [e for e in prof.key_averages() if e.self_cpu_time_total]
+        events.sort(key=lambda e: -e.self_cpu_time_total)
+        return {"wall_ms": wall_ms,
+                "summary_s": time.perf_counter() - t0,
+                "host_self_ms": sum(e.self_cpu_time_total
+                                    for e in events) * 1e-3,
+                "top_host_ms": {e.key[:80]: (e.self_cpu_time_total * 1e-3,
+                                             e.count)
+                                for e in events[:top]}}
 
     # -- phases ------------------------------------------------------------
 
@@ -1124,6 +1224,276 @@ class Smoke:
               "compile_s": commits[0]["compile_s"],
               "max_memory_allocated": peak})
         del svc, program
+
+    # -- the LM substrate --------------------------------------------------
+
+    def _lm_model(self, cfg, seed):
+        """Full-size Qwen3-0.6B, randomly initialised on the card."""
+        from repro_torch.models import model as M
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.padded_vocab,
+                cfg.act_dtype) == (28, 1024, 16, 8, 128, 3072, 151_936,
+                                   152_064, "bfloat16"), cfg
+        model = M.init_model(cfg, seed=seed, device="cuda")
+        params = list(model.parameters())
+        assert len(params) == 14 and sum(p.numel() for p in params) == \
+            QWEN3_0P6B_PARAMS
+        return model
+
+    def _lm_gates(self, step, names):
+        """Gates (a) and (b) on the step's stacks and estimates, leaf by
+        leaf: the estimate against the plain version on the same stack,
+        and against the benign agents' mean (agent K-1 attacks)."""
+        torch = self.torch
+        from repro_torch.kernels import mm_aggregate as mk
+        rows = []
+        for name, x, est in zip(names, step.last_stacks, step.last_aggregate):
+            k = x.shape[0]
+            x2, e2 = x.reshape(k, -1), est.reshape(1, -1)
+            m = x2.shape[1]
+            plan = mk.launch_plan(k, m, 1)
+            uniform = torch.full((k, 1), 1.0 / k, device=self.dev)
+            plain_ms, err = self.plain_check(x2, uniform, e2, plan, False,
+                                             chunk=2 ** 24)
+            benign_mean = x2[:k - 1].mean(0)
+            est_max = float(e2.abs().max())
+            # the leaf's typical |estimate|, beside the tolerance it meets
+            rms = float(e2.double().square().mean().sqrt())
+            rows.append({
+                "leaf": name, "m": m, "variant": plan.variant,
+                "max_abs_err": err, "est_max": est_max, "est_rms": rms,
+                "tol": 1e-5 * max(1.0, est_max),
+                # the same 1e-5 of the leaf's own largest |estimate|: the
+                # gradients are 1e-4 to 1e-1, where the floor of 1 would
+                # let an error as large as a typical value pass
+                "tol_leaf": 1e-5 * est_max,
+                "err_over_rms": err / rms if rms else None,
+                "plain_ms": plain_ms,
+                "max_dev_from_benign_mean": float(
+                    (e2[0] - benign_mean).abs().max()),
+                "min_mean_shift": float(
+                    (x2.mean(0) - benign_mean).abs().min())})
+            del benign_mean
+        return rows
+
+    def lm_train(self):
+        torch = self.torch
+        from repro_torch import pytree
+        from repro_torch.data import synthetic
+        from repro_torch.kernels import mm_aggregate as mk
+        from repro_torch.launch import train
+        from repro_torch.models import model as M
+        from repro_torch.optim import optimizers
+        torch.cuda.empty_cache()
+        args = train.parser().parse_args(list(LM_TRAIN_ARGS))
+        cfg, par, opt_cfg, step = train.build(args, consensus_metric=True)
+        k = args.agents
+        assert par.remat and par.use_kernel and opt_cfg.name == "adam" \
+            and opt_cfg.grad_clip == 1.0, (par, opt_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        model = self._lm_model(cfg, seed=0)
+        names = pytree.leaf_paths(model.tree())
+        state = {"opt": optimizers.init(opt_cfg, model.tree())}
+        stream = synthetic.token_batches(synthetic.TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=args.seq,
+            batch_size=args.batch, seed=0))
+        batches = [{"tokens": torch.from_numpy(next(stream)["tokens"])
+                    .to(self.dev)} for _ in range(args.steps)]
+        rows, gates = [], []
+
+        def run():
+            for i, batch in enumerate(batches):
+                before = [dict(c) for c in self._counts()]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                _, state["opt"], m = step(model, state["opt"], batch)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                step_peak = torch.cuda.max_memory_allocated()
+                launches, variants, by_shape = (
+                    {key: c[key] - b.get(key, 0) for key in c}
+                    for c, b in zip(self._counts(), before))
+                rows.append({"phase": "lm_train", "step": i + 1,
+                             "host_ms": host_ms, "device_ms": step.phase_ms(),
+                             "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "consensus": float(m["consensus"]),
+                             "max_memory_allocated": step_peak,
+                             "launches": launches, "variants": variants,
+                             "by_shape": by_shape})
+                if i == 0:
+                    gates.extend(self.not_counted(
+                        lambda: self._lm_gates(step, names)))
+
+        _, counts, variants = self.main_path(run)
+        by_shape = self.by_shape
+        # the card's busy share over one more step (CUDA tracing only, so
+        # the profiler adds little host time to the step it watches)
+        busy = self.not_counted(lambda: self.device_busy_share(
+            lambda: step(model, state["opt"], batches[-1]), cpu=False))
+        for row in rows:
+            emit(dict(row, by_shape={str(key): n for key, n
+                                     in row["by_shape"].items()}))
+        for g in gates:
+            emit(dict(g, phase="lm_train_leaf"))
+        n_leaves = len(names)
+        # each leaf's (K, M, N) and the variant its plan takes: every step
+        # must launch that kernel once for each leaf of that shape
+        per_step: dict = {}
+        for g in gates:
+            key = (g["variant"], k, g["m"], 1)
+            per_step[key] = per_step.get(key, 0) + 1
+        for row in rows:       # 14 launches a step: 11 regs, 3 warp
+            assert row["launches"] == {"single_pass": n_leaves,
+                                       "two_pass": 0}, row
+            assert row["variants"]["regs"] == 11 and \
+                row["variants"]["warp"] == 3, row
+            assert row["by_shape"] == per_step, (row["by_shape"], per_step)
+            assert all(math.isfinite(row[key])
+                       for key in ("loss", "grad_norm", "consensus")), row
+        assert all(g["max_abs_err"] <= g["tol"] for g in gates), gates
+        assert all(g["max_abs_err"] <= g["tol_leaf"] for g in gates), gates
+        assert all(g["max_dev_from_benign_mean"] < 1.0 for g in gates), gates
+        ln_v = math.log(cfg.vocab_size)
+        assert abs(rows[0]["loss"] - ln_v) <= 1.5, (rows[0]["loss"], ln_v)
+        # one kernels-line entry per distinct (K, M, 1) leaf shape, timed
+        # on the last step's stacks
+        shapes: dict = {}
+        for i, g in enumerate(gates):
+            shapes.setdefault(g["m"], []).append(i)
+        uniform = torch.full((k, 1), 1.0 / k, device=self.dev)
+        assert by_shape == {key: n * args.steps
+                            for key, n in per_step.items()}, by_shape
+        for m, ix in shapes.items():
+            x = step.last_stacks[ix[0]].reshape(k, -1)
+            plan = mk.launch_plan(k, m, 1)
+            call = lambda: mk.single_pass(x, uniform, plan, weighted=False)
+            call_ms, _ = self.not_counted(lambda: self.time_ms(call))
+            ms, _ = self.not_counted(lambda: self.kernel_ms(call))
+            prof, by_name = self.not_counted(lambda: self.profiler_ms(
+                call, launches=3 if ms > 10 else 10))
+            t, by = bound(plan.total_bytes, mm_ops(k, m, 1, False))
+            leaves = ", ".join(gates[i]["leaf"] for i in ix)
+            key = f"mm_single_pass (Qwen3-0.6B train step: {leaves})"
+            self.kernels[key] = dict(
+                name=key, shape=f"K={k} M={m} N=1 f32 ({leaves})",
+                variant=plan.variant,
+                launches=by_shape[(plan.variant, k, m, 1)],
+                source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
+                replaces="src/repro/kernels/mm_aggregate.py:243",
+                max_abs_err=max(gates[i]["max_abs_err"] for i in ix),
+                ms=ms, call_ms=call_ms, profiler_ms=prof,
+                profiler_kernels=by_name,
+                plain_ms=gates[ix[0]]["plain_ms"], bound_ms=t, bound_by=by,
+                library_ms=None, block_m=plan.block_m)
+        assert sum(e["launches"] for e in self.kernels.values()
+                   if "train step" in e["name"]) == counts["single_pass"]
+        # the host's time by operator over one agent's forward and
+        # backward, the code TrainStep runs for each of its 8 agents and
+        # nearly all of a step's host time.  A whole step traced
+        # took 77 s to summarize its ~10^6 host events, and its window
+        # emptied six of the seven CUDA-only windows after it; this one
+        # comes after them
+        def one_agent():
+            leaves = list(model.parameters())
+            loss = M.loss_fn(model.tree(), cfg,
+                             {"tokens": batches[-1]["tokens"][:1]},
+                             remat=par.remat)
+            torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+        host = self.host_profile(one_agent)
+        emit({"phase": "lm_train", "arch": cfg.name,
+              "params": QWEN3_0P6B_PARAMS, "leaves": n_leaves, "agents": k,
+              "seq_len": args.seq, "steps": args.steps,
+              "launches": counts, "variants": variants,
+              "ln_vocab": ln_v, "device_busy_share": busy,
+              "host": host_info(), "host_profile": host,
+              "kernels_per_step": self.busy_kernels,
+              "top_kernels_ms": self.busy_top,
+              "max_memory_allocated": max(r["max_memory_allocated"]
+                                          for r in rows),
+              "gate_a_max_err_over_tol": max(g["max_abs_err"] / g["tol"]
+                                             for g in gates),
+              "gate_a_max_err_over_leaf_tol": max(
+                  g["max_abs_err"] / g["tol_leaf"] for g in gates),
+              "gate_a_max_err_over_rms": max(g["err_over_rms"] or 0.0
+                                             for g in gates),
+              "gate_b_max_dev": max(g["max_dev_from_benign_mean"]
+                                    for g in gates),
+              "min_mean_shift": min(g["min_mean_shift"] for g in gates)})
+        step.last_stacks = step.last_aggregate = None
+        del model, state, step
+
+    def lm_serve(self):
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.launch import steps
+        from repro_torch.models import model as M
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = configs.load_arch("qwen3-0.6b").model
+        model = self._lm_model(cfg, seed=1)
+        b, plen, ntok = LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_TOKENS
+        v = cfg.vocab_size
+        g = torch.Generator(device=self.dev).manual_seed(7)
+        prompt = torch.randint(0, v, (b, plen), generator=g, device=self.dev,
+                               dtype=torch.int32)
+        prefill = steps.make_prefill_step(cfg, "cuda")
+        decode = steps.make_decode_step(cfg, "cuda")
+        prefill_ms, last = self.time_ms(
+            lambda: prefill(model, {"tokens": prompt}))
+        with torch.no_grad():
+            full, _ = M.forward(model, cfg, {"tokens": prompt}, remat=False)
+        want = full[:, :LM_SERVE_CHECKED, :v].float()
+        del full
+        tol = LM_SERVE_TOL * max(1.0, float(want.abs().max()))
+        cache = M.init_cache(cfg, b, plen + ntok, device="cuda")
+        errs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(plen):
+                tok = prompt[:, t:t + 1]
+                if t < LM_SERVE_CHECKED or t == plen - 1:
+                    logits, cache = M.decode_step(model, cfg, tok, cache)
+                    if t < LM_SERVE_CHECKED:
+                        errs.append(float((logits[:, 0, :v].float()
+                                           - want[:, t]).abs().max()))
+                else:
+                    _, cache = decode(model, tok, cache)
+        torch.cuda.synchronize()
+        fill_ms = (time.perf_counter() - t0) * 1e3
+        last_err = float((logits[:, 0, :v].float()
+                          - last[:, 0, :v].float()).abs().max())
+        out = [torch.argmax(logits, dim=-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ntok - 1):
+            nxt, cache = decode(model, out[-1], cache)
+            out.append(nxt)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (ntok - 1)
+        gen = torch.cat(out, dim=1)
+        busy = self.device_busy_share(
+            lambda: decode(model, out[-1], cache), cpu=False)
+        peak = torch.cuda.max_memory_allocated()
+        emit({"phase": "lm_serve", "batch": b, "prompt": plen,
+              "generated": ntok, "prefill_ms": prefill_ms,
+              "prompt_through_decode_ms": fill_ms,
+              "decode_ms_per_token": decode_ms,
+              "decode_device_busy_share": busy,
+              "decode_kernels_per_token": self.busy_kernels,
+              "decode_top_kernels_ms": self.busy_top,
+              "decode_vs_forward_max_err": errs, "tol": tol,
+              "last_position_vs_prefill_err": last_err,
+              "cache_pos": int(cache["blocks"]["pos"].max()),
+              "generated_head": gen[0, :8].tolist(),
+              "max_memory_allocated": peak})
+        assert gen.shape == (b, ntok) and int(gen.max()) < v, gen
+        assert int(cache["blocks"]["pos"].min()) == plen + ntok - 1
+        assert max(errs) <= tol and last_err <= tol, (errs, last_err, tol)
+        del model, cache
 
     def kernels_line(self) -> None:
         rows = []

@@ -20,9 +20,14 @@ Names kept from the reference, and what they mean here:
     launches each cohort by replaying a CUDA graph captured once per
     cohort geometry.
 
+  * ``make_train_step_gspmd`` (``launch.steps``): the reference's Mode A
+    train step, with ``device`` in place of its mesh; its K agents run
+    one after another on the card and its parameters are the
+    reference's stacked leaves (``models.model.Model``).
+
 Entry points take ``device`` and default to ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.  Random draws go
 through explicit ``torch.Generator`` objects seeded from the spec.
-Paradigms not ported yet (``sharded``, ``substrate``) raise
-``NotImplementedError``.
+The ``sharded`` paradigm and the ssm, hybrid and audio model families
+are not ported yet and raise ``NotImplementedError``.
 """

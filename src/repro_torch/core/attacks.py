@@ -33,7 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import devices
+from repro_torch import devices, pytree
 from repro_torch.core import location, mestimators
 
 Attack = Callable[..., torch.Tensor]
@@ -154,3 +154,19 @@ class ByzantineConfig:
         fn = get_attack(self.attack, **dict(self.attack_kwargs))
         mask = self.malicious_mask(honest.shape[0], step, honest.device)
         return fn(honest, mask, generator, step)
+
+    def apply_tree(self, tree, generator=None, step: int = 0):
+        """Leaf-wise corruption of a pytree of stacked (K, ...) leaves
+        (per-agent gradient stacks in the train steps), every leaf with
+        the same generator and step, in the tree's leaf order.  A list
+        is corrupted in place, one entry after another: each honest
+        stack is dropped as soon as its corrupted copy replaces it, so
+        a caller that holds the stacks in a list never holds both copies
+        of more than one leaf."""
+        if self.num_malicious == 0:
+            return tree
+        if isinstance(tree, list):
+            for i in range(len(tree)):
+                tree[i] = self.apply_tree(tree[i], generator, step)
+            return tree
+        return pytree.tree_map(lambda g: self.apply(g, generator, step), tree)

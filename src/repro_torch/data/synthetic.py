@@ -1,7 +1,7 @@
-"""Synthetic data for the paper's linear-model experiment (Sec. 4).
+"""Synthetic data: the paper's linear-model experiment (Sec. 4) and LM
+token streams.
 
-Counterpart of the linear-model half of ``repro.data.synthetic`` (the
-token streams wait for the LM slice).  Per-agent streaming regression
+Counterpart of ``repro.data.synthetic``.  Per-agent streaming regression
 pairs d_k = u_k^T w_o + v_k with u_k ~ N(0, I_M), v_k ~ N(0, sigma_v^2)
 and the LMS gradient approximation (Eq. 33).
 
@@ -13,12 +13,17 @@ from the reference's ``jax.random`` stream.
 Heterogeneity: regressors come from a mixture of ``num_components``
 diagonal families (per-component std ``scales``) and each agent draws
 components with its own weights pi_k ~ Dirichlet(alpha * 1).
+
+Token streams: ``token_batches`` is pure numpy, the reference's own
+code, so both packages yield the same stream from one
+``TokenStreamConfig``; ``make_lm_batch`` draws uniform tokens from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +146,51 @@ def make_client_grad_fn(problem: LinearModelProblem, k_agents: int, *,
         return -u * (d - torch.sum(u * w, dim=1))[:, None]
 
     return grad
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TokenStreamConfig:
+    vocab_size: int
+    seq_len: int
+    batch_size: int          # per-host batch
+    seed: int = 0
+    structure: float = 0.7   # prob. next token is a deterministic fn of prev
+
+
+def _zipf_probs(vocab: int, alpha: float = 1.1) -> np.ndarray:
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** (-alpha)
+    return p / p.sum()
+
+
+def token_batches(cfg: TokenStreamConfig) -> Iterator[dict]:
+    """Infinite iterator of {'tokens': (B, T+1) int32} host arrays.
+
+    tokens[:, :-1] are inputs, tokens[:, 1:] are labels.  A fraction
+    ``structure`` of transitions follow t_{i+1} = (a*t_i + c) % V so the
+    stream has learnable structure; the rest are Zipf draws.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    probs = _zipf_probs(cfg.vocab_size)
+    a, c = 6364136223846793005 % cfg.vocab_size or 1, 1442695040888963407 % cfg.vocab_size
+    while True:
+        noise = rng.choice(cfg.vocab_size, size=(cfg.batch_size, cfg.seq_len + 1), p=probs)
+        structured = rng.random((cfg.batch_size, cfg.seq_len + 1)) < cfg.structure
+        toks = noise.copy()
+        for t in range(1, cfg.seq_len + 1):
+            det = (a * toks[:, t - 1] + c) % cfg.vocab_size
+            toks[:, t] = np.where(structured[:, t], det, noise[:, t])
+        yield {"tokens": toks.astype(np.int32)}
+
+
+def make_lm_batch(generator: torch.Generator, batch: int, seq: int,
+                  vocab: int, device="cuda") -> dict:
+    """Quick batch (for tests and the substrate): uniform int32 tokens
+    (batch, seq + 1) on ``device``, drawn from ``generator``."""
+    toks = torch.randint(0, vocab, (batch, seq + 1), generator=generator,
+                         device=devices.resolve(device), dtype=torch.int32)
+    return {"tokens": toks}

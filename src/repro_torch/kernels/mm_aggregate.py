@@ -17,7 +17,8 @@ two-pass K-major kernel for large cohorts, in which one warp owns one
 column, sorts its bk-row blocks and combines their statistics.  Each
 sits behind a wrapper here (``single_pass``, ``two_pass``) that launches
 it for a CUDA tensor, one kernel per call, and counts the launch in
-``LAUNCHES`` (and the single-pass variant in ``LAUNCHES_BY_VARIANT``);
+``LAUNCHES`` (the single-pass variant in ``LAUNCHES_BY_VARIANT``, the
+kernel and its (K, M, N) in ``LAUNCHES_BY_SHAPE``);
 for a CPU tensor the wrapper runs the plain PyTorch version beside it
 (``mm_single_pass_plain``, ``mm_two_pass_plain``), which repeats the TPU
 kernel's arithmetic on the padded operands: the sorted-order f32
@@ -87,6 +88,8 @@ WARP_MAX_PAIRS = 132 * 32
 # kernel launches made by the wrappers below, for CUDA tensors only
 LAUNCHES = {"single_pass": 0, "two_pass": 0}
 LAUNCHES_BY_VARIANT = {v: 0 for v in SINGLE_PASS_VARIANTS}
+# the same launches by (variant or "two_pass", K, M, N); emptied, not zeroed
+LAUNCHES_BY_SHAPE: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -485,21 +488,24 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
                          f"{plan.n_out}) tensor on {x.device}")
 
 
-def count_launch(plan: LaunchPlan, n: int = 1) -> None:
-    """Add ``n`` launches of the plan's kernel to the counts."""
+def count_launch(plan: LaunchPlan, k: int, m: int, n: int = 1) -> None:
+    """Add ``n`` launches of the plan's kernel over a (k, m) x to the
+    counts."""
     if plan.path == "two_pass":
         LAUNCHES["two_pass"] += n
     else:
         LAUNCHES["single_pass"] += n
         LAUNCHES_BY_VARIANT[plan.variant] += n
+    key = (plan.variant or "two_pass", k, m, plan.n_out)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
 
 
-def _count_launch(plan: LaunchPlan) -> None:
+def _count_launch(plan: LaunchPlan, k: int, m: int) -> None:
     # a launch made while a CUDA graph captures the stream runs only when
     # the graph replays; the launch program counts it there
     # (ops.LaunchProgram.replay)
     if not torch.cuda.is_current_stream_capturing():
-        count_launch(plan)
+        count_launch(plan, k, m)
 
 
 def _launch_args(x, a, out, plan):
@@ -528,7 +534,7 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     if err:
         raise RuntimeError(f"mm_single_pass ({plan.variant}) launch failed: "
                            f"cudaError {err}")
-    _count_launch(plan)
+    _count_launch(plan, k, m)
     return out
 
 
@@ -551,7 +557,7 @@ def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
         int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_two_pass launch failed: cudaError {err}")
-    _count_launch(plan)
+    _count_launch(plan, k, m)
     return out
 
 

@@ -201,8 +201,9 @@ class LaunchProgram:
     by the next replay of this program: a caller that keeps it clones it
     first.  The wrappers do not count the launch they make while the
     graph is captured; each replay adds its kernel launch to their
-    counts (``mm_aggregate.LAUNCHES``).  On the CPU the program calls the
-    engine's launch (the kernels' plain versions) on the static inputs.
+    counts (``mm_aggregate.LAUNCHES`` and the rest).  On the CPU the
+    program calls the engine's launch (the kernels' plain versions) on
+    the static inputs.
     """
 
     def __init__(self, launch, x: torch.Tensor, a: torch.Tensor, plan):
@@ -234,7 +235,7 @@ class LaunchProgram:
             self.graph.replay()
             out = self.out
             if self.plan is not None:
-                _k.count_launch(self.plan)
+                _k.count_launch(self.plan, *self.x.shape)
         self.replays += 1
         return out
 

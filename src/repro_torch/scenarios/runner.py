@@ -13,7 +13,8 @@ from the kernel workloads the engine resolved
 ``compile_s`` times the first step, which carries the kernels' build at
 first use and their first launch; ``wall_clock_s`` times the rest.
 
-``sharded`` and ``substrate`` are not ported yet and raise
+The ``substrate`` adapter lives in ``scenarios.substrate``, imported at
+first use.  ``sharded`` is not ported yet and raises
 ``NotImplementedError``.
 """
 
@@ -156,14 +157,14 @@ def _federated_adapter(spec: ScenarioSpec, device: torch.device):
 def _sharded_adapter(spec: ScenarioSpec, device: torch.device):
     raise NotImplementedError(
         "the sharded paradigm (core/sharded.py collectives over "
-        "torch.distributed) is not ported yet: ROADMAP queue 6")
+        "torch.distributed) is not ported yet: ROADMAP queue 1, item 2")
 
 
 @registry.register_paradigm("substrate")
 def _substrate_adapter(spec: ScenarioSpec, device: torch.device):
-    raise NotImplementedError(
-        "the LM-substrate paradigm (models, optimizers, launch steps) is "
-        "not ported yet: ROADMAP queue 8")
+    # lazy: the substrate pulls the training stack (launch, models, optim)
+    from repro_torch.scenarios import substrate
+    return substrate.lower(spec, device)
 
 
 # ---------------------------------------------------------------------------
@@ -190,7 +191,11 @@ def _audit_from_records(records) -> Optional[dict]:
     return {"layouts": plans, "n_layouts": len(plans)}
 
 
-def _validated_override(state0: torch.Tensor, w0, spec: ScenarioSpec):
+def _validated_override(state0, w0, spec: ScenarioSpec):
+    if not isinstance(state0, torch.Tensor):
+        raise ValueError(
+            f"paradigm {spec.paradigm!r} has no (K, M) or (M,) model state "
+            "to override with w0")
     w0 = torch.as_tensor(w0)
     if tuple(w0.shape) != tuple(state0.shape):
         raise ValueError(

@@ -115,10 +115,18 @@ class ScenarioSpec:
                 raise ValueError(
                     "substrate scenarios need model_config=... "
                     f"({LSQ_SUBSTRATE!r} or a configs arch name)")
+            if self.model_config != LSQ_SUBSTRATE:
+                from repro_torch.configs.base import resolve_arch
+                resolve_arch(self.model_config)   # raises on unknown names
             if self.aggregator not in SUBSTRATE_AGGREGATORS:
                 raise ValueError(
                     f"substrate aggregation supports {SUBSTRATE_AGGREGATORS}; "
                     f"got {self.aggregator!r}")
+            if self.data != "iid" and self.model_config != LSQ_SUBSTRATE:
+                raise ValueError(
+                    "LM-substrate token batches are iid; "
+                    f"data={self.data!r} is only modeled for "
+                    f"model_config={LSQ_SUBSTRATE!r}")
         elif self.model_config:
             raise ValueError(
                 "model_config is a substrate-only field "

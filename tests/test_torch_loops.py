@@ -207,11 +207,9 @@ def test_spec_keeps_the_reference_fields_and_labels():
         scenarios.ScenarioSpec(paradigm="diffusion", participation=0.5)
 
 
-@pytest.mark.parametrize("paradigm,queue", [("sharded", "queue 6"),
-                                            ("substrate", "queue 8")])
+@pytest.mark.parametrize("paradigm,queue", [("sharded", "queue 1, item 2")])
 def test_unported_paradigms_name_their_roadmap_queue(paradigm, queue):
-    kw = {"model_config": "paper_lsq"} if paradigm == "substrate" else {}
-    sp = scenarios.ScenarioSpec(paradigm=paradigm, num_steps=2, **kw)
+    sp = scenarios.ScenarioSpec(paradigm=paradigm, num_steps=2)
     with pytest.raises(NotImplementedError, match=queue):
         scenarios.run(sp, device="cpu")
 
