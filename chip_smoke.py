@@ -104,6 +104,34 @@ Phases, each printing one JSON line (any failure exits nonzero):
               the first 16 positions, and of the last prompt position
               against the prefill's, within 2^-4 x max(1, |logits|_inf)
               of the full-sequence forward's.
+ 13 ssm_train   lm_train's step and gates on full-size RWKV6-1.6B (24
+              layers, d_model 2048, d_ff 7168, vocab 65,536;
+              1,583,943,680 f32 parameters in 26 leaves): K = 4 agents of
+              one 1024-token sequence (16 chunks of 64), agent 3 at
+              +1000.  Besides lm_train's gates: the benign-mean gate's
+              all-agent mean moves by at least 0.9 x 1000 / K, and every
+              agent's gradient stack is finite in every leaf every step.
+              Each leaf launched once a step, on the variant its launch
+              plan picks (the wrappers' counts by shape).
+ 14 ssm_serve   lm_serve on RWKV6-1.6B, but 64 prompt tokens through the
+              decode step from a zero state (16 held to the forward),
+              then 32 greedy tokens.  The same weights also run with f32
+              activations: their decode is held to their forward within
+              1e-3 x max(1, |logits|_inf), and the bf16 decode's
+              tolerance is at least twice the bf16 forward's distance
+              from the f32 one (random-init RWKV6 at full width
+              amplifies bf16 rounding; see LM_SERVE_TOL).
+ 15 hybrid_train  the same on Zamba2-2.7B at full width cut to 12 layers
+              (2 groups of 6 Mamba2 layers, the shared attention block
+              applied twice; 747,364,160 parameters in 21 leaves), K = 8:
+              full depth with K >= 3 would not fit the card.
+ 16 hybrid_serve  ssm_serve's run on full-size Zamba2-2.7B (54 layers).
+ 17 audio_train  the same on full-size SeamlessM4T-large-v2 (24 encoder +
+              24 decoder layers; 1,632,233,472 parameters in 25 leaves),
+              K = 4, each agent's batch with 1024 stub frame embeddings.
+ 18 audio_serve  ssm_serve's run on it, the prompt's frames through the
+              encoder and the cross cache projected by hand from the
+              encoder output (no prefill fills it, as in the reference).
 
 The service's launches are CUDA-graph replays: the kernel wrappers
 count the warm-up launch before each capture, and each replay adds its
@@ -112,7 +140,8 @@ the kernels line take their launches from the service's own count of
 replays.  A serve entry's ``ms`` is one event pair around back-to-back
 replays of the service's program, ``call_ms`` one replay at a time.
 
-Then one {"kernels": [...]} line, the nvidia-smi line, and the final
+After the phases, one line with each phase's seconds and the total;
+then one {"kernels": [...]} line, the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  A kernel's ``ms`` is one CUDA-event
 pair around 50 back-to-back launches (10 for the 256-agent batch and
 the cohort layer), divided by their count; ``call_ms`` is the median of
@@ -122,8 +151,8 @@ call's device time by torch.profiler: the sum over every kernel the call
 runs of its device time per launch (``profiler_kernels`` gives each
 kernel's name and share).  Each entry of the kernels line is one
 main-path run (the paper and federated scenarios, the large cohort and
-its layer-wide launch, the tree launch, the diffusion batches, the LM
-train steps: one entry per distinct (8, M, 1) leaf shape) and its
+its layer-wide launch, the tree launch, the diffusion batches, each LM
+train phase: one entry per distinct (K, M, 1) leaf shape) and its
 launches are that run's own
 count: every count is set to 0 just before the run and read just after;
 launches made to time a kernel or compare it with its plain version are
@@ -136,6 +165,7 @@ library_ms is null.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -149,7 +179,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
           "cohort_width", "serve", "serve_width", "serve_cohort", "lm_train",
-          "lm_serve")
+          "lm_serve", "ssm_train", "ssm_serve", "hybrid_train",
+          "hybrid_serve", "audio_train", "audio_serve")
+# torch.profiler windows traced for one kernels-line entry before its
+# device time is reported as missing (Smoke.profiler_ms)
+PROFILER_WINDOWS = 12
 
 # Qwen3-0.6B (configs/qwen3_0p6b.py) parameter tree: leaf shapes
 QWEN3_0P6B_SHAPES = {
@@ -218,21 +252,70 @@ SERVE_PROFILES = (("clean", 1), ("stragglers", 1), ("network", 1),
                   ("mixed", 2))
 SERVE_ROUNDS = 30
 SERVE_COHORT_K, SERVE_COHORT_BAD = 128, 16
-# the LM substrate at Qwen3-0.6B's full size: launch.train's arguments
-# for K = 8 agents, one sequence of 1024 tokens each (two q_chunk = 512
-# chunks), agent 7 additive at +1000, 3 steps; and the serve shape
-LM_TRAIN_ARGS = ("--arch", "qwen3-0.6b", "--full-config", "--agents", "8",
-                 "--use-kernel", "--malicious", "1", "--attack", "additive",
-                 "--delta", "1000", "--aggregation", "rs_mm", "--steps", "3",
-                 "--batch", "8", "--seq", "1024")
+# the LM substrate: each train phase is launch.train's arguments for K
+# agents of one 1024-token sequence each (the attention families' two
+# q_chunk = 512 chunks; RWKV6's 16 chunks of 64, Zamba2's 8 of 128), the
+# last agent additive at +1000, 3 steps, and what its model must be:
+# its full config (the hybrid cut to 12 layers), its parameter and leaf
+# counts.  Qwen3-0.6B's phase also fixes its launches by variant and
+# traces one agent's host operators
 QWEN3_0P6B_PARAMS = 751_894_528
+
+
+def _train_args(arch: str, agents: int, *extra: str) -> tuple:
+    return ("--arch", arch, "--full-config", "--agents", str(agents),
+            "--use-kernel", "--malicious", "1", "--attack", "additive",
+            "--delta", "1000", "--aggregation", "rs_mm", "--steps", "3",
+            "--batch", str(agents), "--seq", "1024") + extra
+
+
+LM_TRAIN_ARGS = _train_args("qwen3-0.6b", 8)
+LM_TRAIN_RUNS = {
+    "lm_train": dict(label="Qwen3-0.6B", args=LM_TRAIN_ARGS,
+                     params=QWEN3_0P6B_PARAMS, leaves=14,
+                     variants={"regs": 11, "warp": 3}, host_profile=True),
+    "ssm_train": dict(label="RWKV6-1.6B", args=_train_args("rwkv6-1.6b", 4),
+                      params=1_583_943_680, leaves=26),
+    # 54 layers with K >= 3 would need over 90 GB: 12 (2 groups of 6,
+    # the shared block applied twice) at full width
+    "hybrid_train": dict(label="Zamba2-2.7B (12 layers)",
+                         args=_train_args("zamba2-2.7b", 8, "--layers", "12"),
+                         params=747_364_160, leaves=21),
+    "audio_train": dict(label="SeamlessM4T-large-v2",
+                        args=_train_args("seamless-m4t-large-v2", 4),
+                        params=1_632_233_472, leaves=25),
+}
+# the serve phases: each full config at batch 4, a 512-token prompt
+# prefilled (timed), ``teacher`` prompt tokens fed through the decode
+# step from a zero state (Qwen3: the whole prompt, its last position also
+# held to the prefill's), then 32 greedy tokens
 LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_TOKENS = 4, 512, 32
 LM_SERVE_CHECKED = 16      # decode positions held to the forward's logits
+LM_SERVE_RUNS = {
+    "lm_serve": dict(arch="qwen3-0.6b", teacher=LM_SERVE_PROMPT,
+                     params=QWEN3_0P6B_PARAMS, leaves=14),
+    "ssm_serve": dict(arch="rwkv6-1.6b", teacher=64, params=1_583_943_680,
+                      leaves=26, f32_check=True),
+    "hybrid_serve": dict(arch="zamba2-2.7b", teacher=64,
+                         params=2_422_670_240, leaves=21, f32_check=True),
+    "audio_serve": dict(arch="seamless-m4t-large-v2", teacher=64,
+                        params=1_632_233_472, leaves=25, f32_check=True),
+}
 # bf16 decode against the full-sequence forward: the two paths round
-# their products at different shapes through 28 layers, so the logits
+# their products at different shapes through every layer (and the
+# recurrent families sum their chunks in another order), so the logits
 # may differ by a few bf16 steps; 2^-4 of the largest logit is 16 ulps
-# at its magnitude
+# at its magnitude.  Rehearsed on the CPU at each family's full depth
+# and a narrow width (tests/test_torch_lm_families.py).  At full width
+# RWKV6's random-init bf16 forward is itself far from its f32 forward (a
+# 1-ulp difference early grows through the layers), so the phases with
+# ``f32_check`` also run the
+# f32 activations: the bf16 decode is held to max(2^-4 x |logits|_inf,
+# twice the bf16 forward's distance from the f32 one) -- each bf16 path
+# lies about that far from the f32 logits -- and the f32 decode to the
+# f32 forward within 1e-3 x max(1, |logits|_inf) (sums in another order)
 LM_SERVE_TOL = 2.0 ** -4
+LM_SERVE_F32_TOL = 1e-3
 
 
 def layer_width() -> int:
@@ -368,19 +451,29 @@ class Smoke:
         """(device ms of one call of fn, {kernel name: device ms per
         launch}) from torch.profiler over ``launches`` calls: a call's
         time is the sum over every kernel it runs, whatever its name;
-        (None, {}) where the profiler reports no device time."""
+        (None, {}) where the profiler reports no device time.  After the
+        LM phases' step-long windows a window often records the launches
+        but none of the kernels (a third of the windows succeeded in one
+        call on the card), so an empty window is traced again, up to
+        PROFILER_WINDOWS times; the host's operators are traced too,
+        which recorded the kernels where CUDA tracing alone did not."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(launches):
-                fn()
-            torch.cuda.synchronize()
-        # per recorded launch: the profiler may drop a window's first one
-        by_name = {e.key: e.self_device_time_total * 1e-3 / e.count
-                   for e in prof.key_averages()
-                   if e.count and getattr(e, "self_device_time_total", 0)}
+        by_name: dict = {}
+        for _attempt in range(PROFILER_WINDOWS):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(launches):
+                    fn()
+                torch.cuda.synchronize()
+            # per recorded launch: the profiler may drop a window's first
+            by_name = {e.key: e.self_device_time_total * 1e-3 / e.count
+                       for e in prof.key_averages()
+                       if e.count and getattr(e, "self_device_time_total", 0)}
+            if by_name:
+                break
         return (sum(by_name.values()) if by_name else None), by_name
 
     @staticmethod
@@ -1227,23 +1320,28 @@ class Smoke:
 
     # -- the LM substrate --------------------------------------------------
 
-    def _lm_model(self, cfg, seed):
-        """Full-size Qwen3-0.6B, randomly initialised on the card."""
+    def _lm_model(self, cfg, seed, params, leaves):
+        """The phase's model, randomly initialised on the card: its
+        parameter and leaf counts; Qwen3-0.6B's shape besides."""
         from repro_torch.models import model as M
-        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.padded_vocab,
-                cfg.act_dtype) == (28, 1024, 16, 8, 128, 3072, 151_936,
-                                   152_064, "bfloat16"), cfg
+        if cfg.name == "qwen3-0.6b":
+            assert (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                    cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+                    cfg.padded_vocab, cfg.act_dtype) == (
+                        28, 1024, 16, 8, 128, 3072, 151_936, 152_064,
+                        "bfloat16"), cfg
         model = M.init_model(cfg, seed=seed, device="cuda")
-        params = list(model.parameters())
-        assert len(params) == 14 and sum(p.numel() for p in params) == \
-            QWEN3_0P6B_PARAMS
+        got = list(model.parameters())
+        assert len(got) == leaves and sum(p.numel() for p in got) == params, \
+            (cfg.name, len(got), sum(p.numel() for p in got))
         return model
 
-    def _lm_gates(self, step, names):
+    def _lm_gates(self, step, names, delta=1000.0):
         """Gates (a) and (b) on the step's stacks and estimates, leaf by
         leaf: the estimate against the plain version on the same stack,
-        and against the benign agents' mean (agent K-1 attacks)."""
+        and against the benign agents' mean (agent K-1 attacks), whose
+        all-agent mean moves by about delta / K; and every agent's
+        gradient finite in every leaf."""
         torch = self.torch
         from repro_torch.kernels import mm_aggregate as mk
         rows = []
@@ -1272,36 +1370,61 @@ class Smoke:
                 "max_dev_from_benign_mean": float(
                     (e2[0] - benign_mean).abs().max()),
                 "min_mean_shift": float(
-                    (x2.mean(0) - benign_mean).abs().min())})
+                    (x2.mean(0) - benign_mean).abs().min()),
+                "expected_shift": delta / k,
+                "stack_finite": bool(torch.isfinite(x2).all())})
             del benign_mean
         return rows
 
-    def lm_train(self):
+    def _lm_batches(self, cfg, args):
+        """launch.train's batches for the phase's steps: the token stream
+        and, for the encoder-decoder, the stub frames."""
         torch = self.torch
-        from repro_torch import pytree
         from repro_torch.data import synthetic
+        from repro_torch.models import model as M
+        stream = synthetic.token_batches(synthetic.TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=args.seq,
+            batch_size=args.batch, seed=0))
+        frames_gen = torch.Generator(device=self.dev).manual_seed(1)
+        batches = []
+        for _ in range(args.steps):
+            batch = {"tokens": torch.from_numpy(next(stream)["tokens"])
+                     .to(self.dev)}
+            if cfg.arch_type == "audio":
+                batch["frames"] = synthetic.make_frames(
+                    frames_gen, args.batch, cfg.num_prefix_tokens,
+                    cfg.d_model, M.act_dtype(cfg), self.dev)
+            batches.append(batch)
+        return batches
+
+    def lm_train_run(self, phase):
+        """One train phase of LM_TRAIN_RUNS: its model at full width
+        trained by the Mode A step launch.train builds, gated leaf by
+        leaf, each distinct (K, M, 1) leaf shape a kernels-line entry."""
+        torch = self.torch
+        from repro_torch import configs, pytree
         from repro_torch.kernels import mm_aggregate as mk
         from repro_torch.launch import train
         from repro_torch.models import model as M
         from repro_torch.optim import optimizers
+        run = LM_TRAIN_RUNS[phase]
         torch.cuda.empty_cache()
-        args = train.parser().parse_args(list(LM_TRAIN_ARGS))
+        args = train.parser().parse_args(list(run["args"]))
         cfg, par, opt_cfg, step = train.build(args, consensus_metric=True)
+        full = configs.load_arch(args.arch).model
+        assert cfg == dataclasses.replace(
+            full, num_layers=args.layers or full.num_layers), cfg
         k = args.agents
         assert par.remat and par.use_kernel and opt_cfg.name == "adam" \
             and opt_cfg.grad_clip == 1.0, (par, opt_cfg)
         torch.cuda.reset_peak_memory_stats()
-        model = self._lm_model(cfg, seed=0)
+        model = self._lm_model(cfg, 0, run["params"], run["leaves"])
         names = pytree.leaf_paths(model.tree())
         state = {"opt": optimizers.init(opt_cfg, model.tree())}
-        stream = synthetic.token_batches(synthetic.TokenStreamConfig(
-            vocab_size=cfg.vocab_size, seq_len=args.seq,
-            batch_size=args.batch, seed=0))
-        batches = [{"tokens": torch.from_numpy(next(stream)["tokens"])
-                    .to(self.dev)} for _ in range(args.steps)]
+        batches = self._lm_batches(cfg, args)
         rows, gates = [], []
 
-        def run():
+        def run_steps():
             for i, batch in enumerate(batches):
                 before = [dict(c) for c in self._counts()]
                 torch.cuda.synchronize()
@@ -1314,19 +1437,22 @@ class Smoke:
                 launches, variants, by_shape = (
                     {key: c[key] - b.get(key, 0) for key in c}
                     for c, b in zip(self._counts(), before))
-                rows.append({"phase": "lm_train", "step": i + 1,
+                rows.append({"phase": phase, "step": i + 1,
                              "host_ms": host_ms, "device_ms": step.phase_ms(),
                              "loss": float(m["loss"]),
                              "grad_norm": float(m["grad_norm"]),
                              "consensus": float(m["consensus"]),
+                             "stacks_finite": all(
+                                 bool(torch.isfinite(s).all())
+                                 for s in step.last_stacks),
                              "max_memory_allocated": step_peak,
                              "launches": launches, "variants": variants,
                              "by_shape": by_shape})
                 if i == 0:
                     gates.extend(self.not_counted(
-                        lambda: self._lm_gates(step, names)))
+                        lambda: self._lm_gates(step, names, args.delta)))
 
-        _, counts, variants = self.main_path(run)
+        _, counts, variants = self.main_path(run_steps)
         by_shape = self.by_shape
         # the card's busy share over one more step (CUDA tracing only, so
         # the profiler adds little host time to the step it watches)
@@ -1336,7 +1462,7 @@ class Smoke:
             emit(dict(row, by_shape={str(key): n for key, n
                                      in row["by_shape"].items()}))
         for g in gates:
-            emit(dict(g, phase="lm_train_leaf"))
+            emit(dict(g, phase=f"{phase}_leaf"))
         n_leaves = len(names)
         # each leaf's (K, M, N) and the variant its plan takes: every step
         # must launch that kernel once for each leaf of that shape
@@ -1344,17 +1470,22 @@ class Smoke:
         for g in gates:
             key = (g["variant"], k, g["m"], 1)
             per_step[key] = per_step.get(key, 0) + 1
-        for row in rows:       # 14 launches a step: 11 regs, 3 warp
+        for row in rows:
             assert row["launches"] == {"single_pass": n_leaves,
                                        "two_pass": 0}, row
-            assert row["variants"]["regs"] == 11 and \
-                row["variants"]["warp"] == 3, row
+            if "variants" in run:   # Qwen3: 11 regs, 3 warp
+                assert all(row["variants"][v] == n for v, n
+                           in run["variants"].items()), row
             assert row["by_shape"] == per_step, (row["by_shape"], per_step)
             assert all(math.isfinite(row[key])
                        for key in ("loss", "grad_norm", "consensus")), row
+            assert row["stacks_finite"], row
+        assert all(g["stack_finite"] for g in gates), gates
         assert all(g["max_abs_err"] <= g["tol"] for g in gates), gates
         assert all(g["max_abs_err"] <= g["tol_leaf"] for g in gates), gates
         assert all(g["max_dev_from_benign_mean"] < 1.0 for g in gates), gates
+        assert all(g["min_mean_shift"] >= 0.9 * g["expected_shift"]
+                   for g in gates), gates
         ln_v = math.log(cfg.vocab_size)
         assert abs(rows[0]["loss"] - ln_v) <= 1.5, (rows[0]["loss"], ln_v)
         # one kernels-line entry per distinct (K, M, 1) leaf shape, timed
@@ -1371,11 +1502,10 @@ class Smoke:
             call = lambda: mk.single_pass(x, uniform, plan, weighted=False)
             call_ms, _ = self.not_counted(lambda: self.time_ms(call))
             ms, _ = self.not_counted(lambda: self.kernel_ms(call))
-            prof, by_name = self.not_counted(lambda: self.profiler_ms(
-                call, launches=3 if ms > 10 else 10))
+            prof, by_name = self.not_counted(lambda: self.profiler_ms(call))
             t, by = bound(plan.total_bytes, mm_ops(k, m, 1, False))
             leaves = ", ".join(gates[i]["leaf"] for i in ix)
-            key = f"mm_single_pass (Qwen3-0.6B train step: {leaves})"
+            key = f"mm_single_pass ({run['label']} train step: {leaves})"
             self.kernels[key] = dict(
                 name=key, shape=f"K={k} M={m} N=1 f32 ({leaves})",
                 variant=plan.variant,
@@ -1388,74 +1518,115 @@ class Smoke:
                 plain_ms=gates[ix[0]]["plain_ms"], bound_ms=t, bound_by=by,
                 library_ms=None, block_m=plan.block_m)
         assert sum(e["launches"] for e in self.kernels.values()
-                   if "train step" in e["name"]) == counts["single_pass"]
-        # the host's time by operator over one agent's forward and
-        # backward, the code TrainStep runs for each of its 8 agents and
-        # nearly all of a step's host time.  A whole step traced
-        # took 77 s to summarize its ~10^6 host events, and its window
-        # emptied six of the seven CUDA-only windows after it; this one
-        # comes after them
-        def one_agent():
-            leaves = list(model.parameters())
-            loss = M.loss_fn(model.tree(), cfg,
-                             {"tokens": batches[-1]["tokens"][:1]},
-                             remat=par.remat)
-            torch.autograd.grad(loss, leaves, allow_unused=True,
-                                materialize_grads=True)
-        host = self.host_profile(one_agent)
-        emit({"phase": "lm_train", "arch": cfg.name,
-              "params": QWEN3_0P6B_PARAMS, "leaves": n_leaves, "agents": k,
-              "seq_len": args.seq, "steps": args.steps,
-              "launches": counts, "variants": variants,
-              "ln_vocab": ln_v, "device_busy_share": busy,
-              "host": host_info(), "host_profile": host,
-              "kernels_per_step": self.busy_kernels,
-              "top_kernels_ms": self.busy_top,
-              "max_memory_allocated": max(r["max_memory_allocated"]
-                                          for r in rows),
-              "gate_a_max_err_over_tol": max(g["max_abs_err"] / g["tol"]
-                                             for g in gates),
-              "gate_a_max_err_over_leaf_tol": max(
-                  g["max_abs_err"] / g["tol_leaf"] for g in gates),
-              "gate_a_max_err_over_rms": max(g["err_over_rms"] or 0.0
-                                             for g in gates),
-              "gate_b_max_dev": max(g["max_dev_from_benign_mean"]
-                                    for g in gates),
-              "min_mean_shift": min(g["min_mean_shift"] for g in gates)})
+                   if f"{run['label']} train step" in e["name"]) == \
+            counts["single_pass"]
+        extra = {}
+        if run.get("host_profile"):
+            # the host's time by operator over one agent's forward and
+            # backward, the code TrainStep runs for each agent and nearly
+            # all of a step's host time.  A whole step traced took 77 s
+            # to summarize its ~10^6 host events, and its window emptied
+            # six of the seven CUDA-only windows after it; this one comes
+            # after them
+            def one_agent():
+                leaves = list(model.parameters())
+                loss = M.loss_fn(model.tree(), cfg,
+                                 {"tokens": batches[-1]["tokens"][:1]},
+                                 remat=par.remat)
+                torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+            extra["host_profile"] = self.host_profile(one_agent)
+        emit(dict({"phase": phase, "arch": cfg.name,
+                   "layers": cfg.num_layers, "params": run["params"],
+                   "leaves": n_leaves, "agents": k, "seq_len": args.seq,
+                   "steps": args.steps, "launches": counts,
+                   "variants": variants, "ln_vocab": ln_v,
+                   "device_busy_share": busy, "host": host_info(),
+                   "kernels_per_step": self.busy_kernels,
+                   "top_kernels_ms": self.busy_top,
+                   "max_memory_allocated": max(r["max_memory_allocated"]
+                                               for r in rows),
+                   "gate_a_max_err_over_tol": max(g["max_abs_err"] / g["tol"]
+                                                  for g in gates),
+                   "gate_a_max_err_over_leaf_tol": max(
+                       g["max_abs_err"] / g["tol_leaf"] for g in gates),
+                   "gate_a_max_err_over_rms": max(g["err_over_rms"] or 0.0
+                                                  for g in gates),
+                   "gate_b_max_dev": max(g["max_dev_from_benign_mean"]
+                                         for g in gates),
+                   "min_mean_shift": min(g["min_mean_shift"]
+                                         for g in gates)}, **extra))
         step.last_stacks = step.last_aggregate = None
         del model, state, step
 
-    def lm_serve(self):
+    def _cross_cache(self, model, cfg, frames, cache):
+        """The encoder-decoder's cross cache, projected by hand from the
+        encoder output as the reference's test fills it (no prefill of
+        either package fills it)."""
+        torch = self.torch
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+        tree = model.tree()
+        with torch.no_grad():
+            enc = M._encdec_encode(tree, cfg, frames, M._id_hook, False)
+            xdims = M.attn_dims(cfg, causal=False)
+            kv = [L.project_enc_kv({n: t[i] for n, t in
+                                    tree["blocks"]["xattn"].items()},
+                                   enc, xdims)
+                  for i in range(cfg.num_layers)]
+        cache["cross"] = {"k": torch.stack([k for k, _ in kv]),
+                          "v": torch.stack([v for _, v in kv])}
+        return cache
+
+    def lm_serve_run(self, phase):
+        """One serve phase of LM_SERVE_RUNS: make_prefill_step and
+        make_decode_step on the full config at batch 4, the decode held
+        to the full-sequence forward."""
         torch = self.torch
         from repro_torch import configs
+        from repro_torch.data import synthetic
         from repro_torch.launch import steps
         from repro_torch.models import model as M
+        run = LM_SERVE_RUNS[phase]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = configs.load_arch("qwen3-0.6b").model
-        model = self._lm_model(cfg, seed=1)
+        cfg = configs.load_arch(run["arch"]).model
+        model = self._lm_model(cfg, 1, run["params"], run["leaves"])
         b, plen, ntok = LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_TOKENS
+        teacher = run["teacher"]
         v = cfg.vocab_size
         g = torch.Generator(device=self.dev).manual_seed(7)
         prompt = torch.randint(0, v, (b, plen), generator=g, device=self.dev,
                                dtype=torch.int32)
+        batch = {"tokens": prompt}
+        if cfg.arch_type == "audio":
+            batch["frames"] = synthetic.make_frames(
+                g, b, cfg.num_prefix_tokens, cfg.d_model, M.act_dtype(cfg),
+                self.dev)
         prefill = steps.make_prefill_step(cfg, "cuda")
         decode = steps.make_decode_step(cfg, "cuda")
-        prefill_ms, last = self.time_ms(
-            lambda: prefill(model, {"tokens": prompt}))
+        prefill_ms, last = self.time_ms(lambda: prefill(model, batch))
         with torch.no_grad():
-            full, _ = M.forward(model, cfg, {"tokens": prompt}, remat=False)
+            full, _ = M.forward(model, cfg, batch, remat=False)
         want = full[:, :LM_SERVE_CHECKED, :v].float()
         del full
         tol = LM_SERVE_TOL * max(1.0, float(want.abs().max()))
-        cache = M.init_cache(cfg, b, plen + ntok, device="cuda")
+        f32 = {}
+        if run.get("f32_check"):
+            f32 = self._f32_decode_check(model, cfg, batch)
+            floor = float((want - f32.pop("want")).abs().max())
+            f32["bf16_forward_vs_f32_max_err"] = floor
+            tol = max(tol, 2.0 * floor)
+        cache = M.init_cache(cfg, b, teacher + ntok, device="cuda")
+        if cfg.arch_type == "audio":
+            cache = self._cross_cache(model, cfg, batch["frames"], cache)
         errs = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            for t in range(plen):
+            for t in range(teacher):
                 tok = prompt[:, t:t + 1]
-                if t < LM_SERVE_CHECKED or t == plen - 1:
+                if t < LM_SERVE_CHECKED or t == teacher - 1:
                     logits, cache = M.decode_step(model, cfg, tok, cache)
                     if t < LM_SERVE_CHECKED:
                         errs.append(float((logits[:, 0, :v].float()
@@ -1464,8 +1635,10 @@ class Smoke:
                     _, cache = decode(model, tok, cache)
         torch.cuda.synchronize()
         fill_ms = (time.perf_counter() - t0) * 1e3
-        last_err = float((logits[:, 0, :v].float()
-                          - last[:, 0, :v].float()).abs().max())
+        last_err = None
+        if teacher == plen:     # the whole prompt: its last position too
+            last_err = float((logits[:, 0, :v].float()
+                              - last[:, 0, :v].float()).abs().max())
         out = [torch.argmax(logits, dim=-1).to(torch.int32)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1478,22 +1651,58 @@ class Smoke:
         busy = self.device_busy_share(
             lambda: decode(model, out[-1], cache), cpu=False)
         peak = torch.cuda.max_memory_allocated()
-        emit({"phase": "lm_serve", "batch": b, "prompt": plen,
+        # the attention caches' next position, where the family has one
+        pos = cache["attn"]["pos"] if cfg.arch_type == "hybrid" else \
+            cache["blocks"].get("pos")
+        emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+              "batch": b, "prompt": plen, "teacher_forced": teacher,
               "generated": ntok, "prefill_ms": prefill_ms,
               "prompt_through_decode_ms": fill_ms,
               "decode_ms_per_token": decode_ms,
               "decode_device_busy_share": busy,
               "decode_kernels_per_token": self.busy_kernels,
               "decode_top_kernels_ms": self.busy_top,
-              "decode_vs_forward_max_err": errs, "tol": tol,
+              "decode_vs_forward_max_err": errs, "tol": tol, **f32,
               "last_position_vs_prefill_err": last_err,
-              "cache_pos": int(cache["blocks"]["pos"].max()),
+              "cache_pos": None if pos is None else int(pos.max()),
               "generated_head": gen[0, :8].tolist(),
               "max_memory_allocated": peak})
         assert gen.shape == (b, ntok) and int(gen.max()) < v, gen
-        assert int(cache["blocks"]["pos"].min()) == plen + ntok - 1
-        assert max(errs) <= tol and last_err <= tol, (errs, last_err, tol)
+        if pos is not None:
+            assert int(pos.min()) == teacher + ntok - 1, pos
+        assert max(errs) <= tol, (errs, tol)
+        assert last_err is None or last_err <= tol, (last_err, tol)
+        if f32:
+            assert max(f32["f32_decode_vs_forward_max_err"]) <= \
+                f32["f32_tol"], f32
         del model, cache
+
+    def _f32_decode_check(self, model, cfg, batch) -> dict:
+        """The same weights and prompt with f32 activations: the forward's
+        logits on the checked positions (``want``), how far the bf16
+        forward's arithmetic alone moves them (the caller's floor), and
+        the f32 decode of those positions against the f32 forward."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+        n, v = LM_SERVE_CHECKED, cfg.vocab_size
+        with torch.no_grad():
+            full, _ = M.forward(model, cfg32, batch, remat=False)
+            want = full[:, :n, :v].float()
+            del full
+            cache = M.init_cache(cfg32, batch["tokens"].shape[0], n,
+                                 device="cuda")
+            if cfg.arch_type == "audio":
+                cache = self._cross_cache(model, cfg32, batch["frames"], cache)
+            errs = []
+            for t in range(n):
+                logits, cache = M.decode_step(
+                    model, cfg32, batch["tokens"][:, t:t + 1], cache)
+                errs.append(float((logits[:, 0, :v] - want[:, t])
+                                  .abs().max()))
+        return {"want": want, "f32_decode_vs_forward_max_err": errs,
+                "f32_tol": LM_SERVE_F32_TOL * max(1.0,
+                                                  float(want.abs().max()))}
 
     def kernels_line(self) -> None:
         rows = []
@@ -1522,9 +1731,21 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke(torch, args)
+    seconds = {}
+    t_all = time.perf_counter()
     for phase in PHASES:
         if phase in args.phases:
-            getattr(smoke, phase)()
+            t0 = time.perf_counter()
+            if phase in LM_TRAIN_RUNS:
+                smoke.lm_train_run(phase)
+            elif phase in LM_SERVE_RUNS:
+                smoke.lm_serve_run(phase)
+            else:
+                getattr(smoke, phase)()
+            seconds[phase] = time.perf_counter() - t0
+            emit({"phase_seconds": phase, "seconds": seconds[phase]})
+    emit({"phase_seconds": seconds,
+          "total_s": time.perf_counter() - t_all})
     smoke.kernels_line()
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

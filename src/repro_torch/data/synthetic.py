@@ -194,3 +194,12 @@ def make_lm_batch(generator: torch.Generator, batch: int, seq: int,
     toks = torch.randint(0, vocab, (batch, seq + 1), generator=generator,
                          device=devices.resolve(device), dtype=torch.int32)
     return {"tokens": toks}
+
+
+def make_frames(generator: torch.Generator, batch: int, frames: int,
+                d_model: int, dtype, device="cuda") -> torch.Tensor:
+    """Stub audio frame embeddings (batch, frames, d_model) for the
+    encoder-decoder: 0.02 x standard normal draws in ``dtype``, as the
+    reference's batches make them."""
+    return 0.02 * torch.randn((batch, frames, d_model), generator=generator,
+                              dtype=dtype, device=devices.resolve(device))

@@ -172,6 +172,7 @@ def main(argv=None):
 
     print(f"# arch={model.name} params={n_params/1e6:.1f}M agents={k} "
           f"agg={par.aggregation} malicious={args.malicious} device={dev}")
+    frames_gen = torch.Generator(device=dev).manual_seed(1)
     t0 = time.time()
     losses = []
     for i in range(args.steps):
@@ -181,6 +182,10 @@ def main(argv=None):
             tb["prefix"] = torch.zeros(
                 (batch, model.num_prefix_tokens, model.d_model),
                 dtype=M.act_dtype(model), device=dev)
+        if model.arch_type == "audio":
+            tb["frames"] = synthetic.make_frames(
+                frames_gen, batch, model.num_prefix_tokens, model.d_model,
+                M.act_dtype(model), dev)
         params, opt, metrics = step(params, opt, tb)
         losses.append(float(metrics["loss"]))
         if i % args.log_every == 0 or i == args.steps - 1:

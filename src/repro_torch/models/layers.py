@@ -16,7 +16,7 @@ Attention is the reference's query-chunked softmax written as plain
 PyTorch einsums; each chunk is recomputed in backward
 (``torch.utils.checkpoint``) so backward never holds every chunk's
 (B, KV, G, q_chunk, S) f32 probabilities at once.  Cross-attention
-(the encoder-decoder family) waits for ROADMAP queue 1, item 1.
+(the encoder-decoder family) is query-chunked the same way.
 """
 
 from __future__ import annotations
@@ -261,6 +261,55 @@ def init_kv_cache(batch: int, dims: AttnDims, max_len: int, dtype,
         "v": torch.zeros((batch, s_c, kv, hd), dtype=dtype, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention_fwd(p: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                        enc_v: torch.Tensor, dims: AttnDims,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention: q from x, fixed (precomputed) encoder k/v;
+    no RoPE and no mask.  ``positions`` is unused, as in the reference.
+
+    Query-chunked like self-attention, each chunk recomputed in backward
+    when there are several."""
+    del positions
+    b, s, _ = x.shape
+    dt = x.dtype
+    h, hd = dims.num_heads, dims.head_dim
+    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd)
+    if dims.qk_norm:
+        q = head_rms_norm(q, p["q_norm"].to(dt), dims.norm_eps)
+
+    qc = min(dims.q_chunk, s)
+    while s % qc:
+        qc -= 1
+
+    def chunk_attn(q_blk, enc_k, enc_v):
+        probs = torch.softmax(_gqa_scores(q_blk, enc_k, dims).float(), dim=-1)
+        return _gqa_out(probs.to(dt), enc_v)
+
+    if qc == s:
+        out = chunk_attn(q, enc_k, enc_v)
+    else:
+        out = torch.cat([checkpoint(chunk_attn, q[:, lo:lo + qc], enc_k,
+                                    enc_v, use_reentrant=False)
+                         for lo in range(0, s, qc)], dim=1)
+    return out @ p["wo"].to(dt)
+
+
+def project_enc_kv(p: dict, enc_out: torch.Tensor, dims: AttnDims):
+    """The encoder output's keys and values, (B, F, KV, D) each."""
+    b, s, _ = enc_out.shape
+    dt = enc_out.dtype
+    kv, hd = dims.num_kv_heads, dims.head_dim
+    k = (enc_out @ p["wk"].to(dt)).reshape(b, s, kv, hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(b, s, kv, hd)
+    if dims.qk_norm:
+        k = head_rms_norm(k, p["k_norm"].to(dt), dims.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -147,6 +147,10 @@ def build_lm_components(spec: ScenarioSpec, device: torch.device):
             batch["prefix"] = torch.zeros((b, p, model_cfg.d_model),
                                           dtype=M.act_dtype(model_cfg),
                                           device=device)
+        if model_cfg.arch_type == "audio":
+            batch["frames"] = synthetic.make_frames(
+                generator, b, model_cfg.num_prefix_tokens, model_cfg.d_model,
+                M.act_dtype(model_cfg), device)
         return batch
 
     return model_cfg, par, opt_cfg, byz, state0, batch_fn

@@ -2,16 +2,22 @@
 the JAX reference (CPU): the same parameters (a JAX tree crossed with
 ``interop.from_numpy_tree``), the same numpy tokens.
 
-Every dense/MoE/VLM ``smoke_config()``: logits, loss and every leaf's
-gradient.  Then decode equal to forward (GQA with qk-norm and biases;
-the sliding-window ring cache), remat leaving values unchanged, the
-pad-class mask of a vocab that is not a multiple of 256, the VLM prefix
-outside the logits, one bf16-activation forward, the module's names and
-leaf order, the configs, and the families that wait.
+Every family's ``smoke_config()`` (dense, MoE, VLM, RWKV6, Zamba2, the
+encoder-decoder): logits, loss and every leaf's gradient.  Then decode
+equal to forward (GQA with qk-norm and biases; the sliding-window ring
+cache), remat leaving values unchanged, the pad-class mask of a vocab
+that is not a multiple of 256, the VLM prefix outside the logits, one
+bf16-activation forward, the module's names and leaf order, and the
+configs.  The RWKV6, Zamba2 and encoder-decoder families' own cases are
+in ``test_torch_lm_families.py``.
 
 Tolerances: f32 logits atol 2e-5, loss rtol 1e-6, gradients atol 2e-5
-(sums in another order); bf16 logits within 2^-5 of the largest logit
-(the packages' bf16 products round at different points).
+(sums in another order) -- RWKV6's 5e-5: at initialisation its bonus
+and state are 0, so the first token's head output is exactly 0 and the
+per-head norm scales its gradient by rsqrt(1e-5) = 316, which shows
+f32 rounding in ``embed`` at 3.2e-5 (with a random bonus the same
+comparison gives 9.5e-7); bf16 logits within 2^-5 of the largest
+logit (the packages' bf16 products round at different points).
 """
 
 import dataclasses
@@ -28,8 +34,22 @@ from repro_torch import configs as tconfigs
 from repro_torch import interop, pytree
 from repro_torch.models import model as TM
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: in a parallel run each worker's default
+    pool spins against the other workers', and these small-tensor tests
+    ran 30-50x slower there than alone (alone, one thread is as fast)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LM_ARCHS = ("qwen3_0p6b", "qwen3_32b", "qwen1p5_110b", "stablelm_3b",
-            "dbrx_132b", "qwen3_moe_235b_a22b", "llava_next_34b")
+            "dbrx_132b", "qwen3_moe_235b_a22b", "llava_next_34b",
+            "rwkv6_1p6b", "zamba2_2p7b", "seamless_m4t_large_v2")
+GRAD_ATOL = {"rwkv6_1p6b": 5e-5}
 
 
 def _params(jcfg, seed=0):
@@ -44,8 +64,8 @@ def _port_cfg(jcfg):
 def _batch(cfg, b=2, t=17, seed=0):
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)}
-    if cfg.arch_type == "vlm":
-        batch["prefix"] = rng.normal(
+    if cfg.arch_type in ("vlm", "audio"):
+        batch["prefix" if cfg.arch_type == "vlm" else "frames"] = rng.normal(
             size=(b, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32)
     return batch
 
@@ -87,7 +107,8 @@ def test_smoke_config_logits_loss_and_grads_match(arch):
     jleaves = jax.tree.leaves(jg)
     assert len(jleaves) == len(tg)
     for a, b in zip(tg, jleaves):
-        np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(a), np.asarray(b),
+                                   atol=GRAD_ATOL.get(arch, 2e-5), rtol=1e-5)
 
 
 def _decode_all(params, cfg, toks, cache_len):
@@ -228,10 +249,3 @@ def test_configs_match_the_reference():
     shape = tconfigs.INPUT_SHAPES["long_500k"]
     m = tconfigs.model_for_shape(tconfigs.load_arch("qwen3-0.6b").model, shape)
     assert m.sliding_window == tconfigs.LONG_CONTEXT_WINDOW
-
-
-@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "zamba2_2p7b",
-                                  "seamless_m4t_large_v2"])
-def test_families_not_ported_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        TM.init_model(tconfigs.load_smoke(arch), device="cpu")

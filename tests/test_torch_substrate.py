@@ -23,6 +23,18 @@ from repro_torch.launch import train
 from repro_torch.models import model as TM
 from repro_torch.scenarios import substrate
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: in a parallel run each worker's default
+    pool spins against the other workers', and these small-tensor tests
+    ran 30-50x slower there than alone (alone, one thread is as fast)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LM_TINY = dict(
     paradigm="substrate", model_config="qwen3-0.6b", aggregator="mm_tukey",
     num_agents=4, num_steps=2,
