@@ -80,7 +80,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
  11 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
               1024, vocab 151,936 padded to 152,064, 751,894,528 f32
               parameters in 14 leaves, bf16 activations) randomly
-              initialised on the card, trained 3 steps by the Mode A step
+              initialised on the card, trained 2 steps by the Mode A step
               launch.train builds: K = 8 agents of one 1024-token
               sequence each, agent 7 additive at +1000, rs_mm on the
               kernels, Adam with clip 1.0, the consensus metric.  Per
@@ -132,6 +132,43 @@ Phases, each printing one JSON line (any failure exits nonzero):
  18 audio_serve  ssm_serve's run on it, the prompt's frames through the
               encoder and the cross cache projected by hand from the
               encoder output (no prefill fills it, as in the reference).
+ 19 sharded   the robust collectives (repro_torch.core.sharded) over 4
+              agent processes sharing the card over gloo
+              (launch.mesh.run_ranks, a 2 x 2 (pod, data) mesh): each
+              collective checked and timed on CUDA tensors first (the
+              transport printed); each rank's own update shaped like
+              Qwen3-0.6B's tree (rank 3 at +1000) through
+              robust_all_reduce_tree with rs_mm on the kernel, then
+              mean.  Gates: every rank's local (4, M/4) estimate within
+              1e-5 x max(1, |estimate|_inf) of the kernel's plain version
+              on the same block; the results bit-identical across ranks
+              (checksums); over one decoder layer rs_mm within that
+              tolerance of gather_mm, and bit-equal where both launch the
+              same variant; hier_mm equal to its pods' mean.  Per
+              collective: host ms, the kernels' CUDA-event ms, the bytes
+              each rank sent.
+ 20 fsdp_train  Mode B (launch.steps.make_train_step_fsdp) on full-size
+              Qwen3-0.6B over the 4 agent processes, each one 1024-token
+              sequence, rank 3 additive at +1000, rs_mm on the kernel,
+              remat.  Mode A's SGD step (lr 1, no clip) runs first here
+              on the same parameters and batches; the ranks' first step
+              is the same SGD step, whose update p0 - p1 is held to Mode
+              A's per leaf (all but max(2, 1%) of the coordinates within
+              1e-6 + 1e-5 |want|, every one within 2^-8 of the leaf's
+              largest |want|: a bf16 cotangent may round the other way
+              where sums run in another order) and to the benign mean
+              (within 1, while the all-agent mean moves >= 0.9 x 250);
+              then 3 Adam steps with clip 1.0.  Every loss finite, step
+              1 within 1.5 of ln V; launches a step 28 x 11 hooked + 3.
+              The replicated leaves' drift across ranks after the Adam
+              steps is printed (the reference clips each rank's local
+              tree by its own norm).
+ 21 fsdp_serve  make_prefill_step / make_decode_step with fsdp=True on
+              the same model sharded over the 4 processes, one row each:
+              a 512-token prefill (timed) and decode logits teacher-
+              forced on Mode A's greedy tokens (FSDP_SERVE_CHECKED
+              positions), within 2^-4 x max(1, |logits|_inf) of Mode A's
+              unsharded steps; then 32 greedy tokens (ms per token).
 
 The service's launches are CUDA-graph replays: the kernel wrappers
 count the warm-up launch before each capture, and each replay adds its
@@ -180,7 +217,8 @@ F32_OPS_PER_S = 67e12
 PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
           "cohort_width", "serve", "serve_width", "serve_cohort", "lm_train",
           "lm_serve", "ssm_train", "ssm_serve", "hybrid_train",
-          "hybrid_serve", "audio_train", "audio_serve")
+          "hybrid_serve", "audio_train", "audio_serve", "sharded",
+          "fsdp_train", "fsdp_serve")
 # torch.profiler windows traced for one kernels-line entry before its
 # device time is reported as missing (Smoke.profiler_ms)
 PROFILER_WINDOWS = 12
@@ -255,7 +293,9 @@ SERVE_COHORT_K, SERVE_COHORT_BAD = 128, 16
 # the LM substrate: each train phase is launch.train's arguments for K
 # agents of one 1024-token sequence each (the attention families' two
 # q_chunk = 512 chunks; RWKV6's 16 chunks of 64, Zamba2's 8 of 128), the
-# last agent additive at +1000, 3 steps, and what its model must be:
+# last agent additive at +1000, 2 steps (so that the whole run, the
+# collectives' phases included, stays near half its time limit), and
+# what its model must be:
 # its full config (the hybrid cut to 12 layers), its parameter and leaf
 # counts.  Qwen3-0.6B's phase also fixes its launches by variant and
 # traces one agent's host operators
@@ -265,7 +305,7 @@ QWEN3_0P6B_PARAMS = 751_894_528
 def _train_args(arch: str, agents: int, *extra: str) -> tuple:
     return ("--arch", arch, "--full-config", "--agents", str(agents),
             "--use-kernel", "--malicious", "1", "--attack", "additive",
-            "--delta", "1000", "--aggregation", "rs_mm", "--steps", "3",
+            "--delta", "1000", "--aggregation", "rs_mm", "--steps", "2",
             "--batch", str(agents), "--seq", "1024") + extra
 
 
@@ -316,6 +356,23 @@ LM_SERVE_RUNS = {
 # f32 forward within 1e-3 x max(1, |logits|_inf) (sums in another order)
 LM_SERVE_TOL = 2.0 ** -4
 LM_SERVE_F32_TOL = 1e-3
+# the collectives and Mode B: K agent processes share the card over gloo
+# (NCCL takes no two ranks on one GPU), a 2 x 2 (pod, data) mesh for
+# hier_mm; the last agent adds +1000; every rank's collectives time out
+# after DIST_TIMEOUT_S
+DIST_K, DIST_PODS, DIST_DELTA = 4, 2, 1000.0
+DIST_TIMEOUT_S = 600.0
+# fsdp_serve holds this many decode positions to Mode A's logits: every
+# decode token gathers every layer again (0.66 GB sent a rank, ~2 s over
+# gloo on one card), so fewer than lm_serve's LM_SERVE_CHECKED
+FSDP_SERVE_CHECKED = 4
+# Mode B's step-1 update against Mode A's on the same parameters and
+# batches: the bf16 cotangent of a gathered leaf may round to the other
+# side of a bf16 step where the two paths sum in another order, so all
+# but max(2, 1%) of a leaf's coordinates within 1e-6 + 1e-5 |want|, and
+# every one within 2^-8 of the leaf's largest |want| (tests/
+# test_torch_fsdp.py holds the port to the reference by the same rule)
+FSDP_TRAIN_STEPS = 3
 
 
 def layer_width() -> int:
@@ -1704,6 +1761,258 @@ class Smoke:
                 "f32_tol": LM_SERVE_F32_TOL * max(1.0,
                                                   float(want.abs().max()))}
 
+    # -- the collectives and Mode B: DIST_K agent processes on the card -----
+
+    def _spawn(self, fn, *args, pods: int = 1):
+        """fn on DIST_K ranks sharing the card over gloo, after the
+        kernels are built here (so no rank runs nvcc); any failing rank
+        fails the phase with its traceback."""
+        from repro_torch.kernels import build
+        from repro_torch.launch import mesh as mesh_lib
+        build.load_all()
+        self.torch.cuda.synchronize()
+        self.torch.cuda.empty_cache()
+        return mesh_lib.run_ranks(fn, DIST_K, *args, pods=pods, cuda=True,
+                                  timeout_s=DIST_TIMEOUT_S)
+
+    def _dist_entries(self, phase, label, ranks):
+        """One kernels-line entry per (K, M) that rank 0 timed: launches
+        are every rank's count of that shape over the main path."""
+        for row in ranks[0]["timing"]:
+            key = str((row["variant"], row["k"], row["m"], 1))
+            launches = sum(rk["by_shape"].get(key, 0) for rk in ranks)
+            assert launches > 0, (phase, key)
+            assert row["max_abs_err"] <= row["tol"], (phase, row)
+            name = f"mm_single_pass ({label}: K={row['k']} M={row['m']})"
+            self.kernels[name] = dict(
+                name=name, shape=f"K={row['k']} M={row['m']} N=1 f32, "
+                f"local block of one of {DIST_K} ranks", launches=launches,
+                launches_per_rank=[rk["by_shape"].get(key, 0) for rk in ranks],
+                source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
+                replaces="src/repro/kernels/mm_aggregate.py:243",
+                **{f: row[f] for f in ("variant", "max_abs_err", "ms",
+                                       "call_ms", "profiler_ms",
+                                       "profiler_kernels", "plain_ms",
+                                       "bound_ms", "bound_by", "block_m")},
+                library_ms=None)
+
+    def sharded(self):
+        """DIST_K agent processes, each with its own update shaped like
+        Qwen3-0.6B's tree, through robust_all_reduce_tree (rs_mm, then
+        mean) on the kernel; the gates of each rank."""
+        ranks = self._spawn(_sharded_rank, 0, pods=DIST_PODS)
+        shapes, _ = qwen3_shapes()
+        ms_by_m = {row["m"]: row["ms"] for row in ranks[0]["timing"]}
+        for rk in ranks:
+            for method, run in rk["collectives"].items():
+                kernel_ms = sum(ms_by_m[g["m"]] for g in rk["gates"]) \
+                    if method != "mean" else 0.0
+                emit({"phase": "sharded", "rank": rk["rank"],
+                      "collective": f"robust_all_reduce_tree {method}",
+                      "host_ms": run["host_ms"],
+                      "kernel_ms_rank0_timing": kernel_ms,
+                      "sent_bytes": run["sent"],
+                      "transport": rk["transport"]})
+            emit(dict({"phase": "sharded_layer", "rank": rk["rank"]},
+                      **rk["layer"]))
+            emit(dict({"phase": "sharded_probe", "rank": rk["rank"],
+                       "transport": rk["transport"]}, **rk["probe"]))
+        for g in ranks[0]["gates"]:
+            emit(dict(g, phase="sharded_leaf", rank=0))
+        for rk in ranks:
+            assert rk["launches"] == {"single_pass": len(shapes),
+                                      "two_pass": 0}, rk["launches"]
+            assert rk["transport"] == "gloo:direct", rk["transport"]
+            assert all(g["finite"] and g["max_abs_err"] <= g["tol"]
+                       for g in rk["gates"]), rk["gates"]
+            lay = rk["layer"]
+            assert lay["rs_vs_gather_max_err"] <= lay["tol"], lay
+            if lay["rs_mm_variant"] == lay["gather_mm_variant"]:
+                assert lay["rs_equals_gather"], lay
+            assert lay["hier_vs_pod_mean_max_err"] <= lay["hier_tol"], lay
+            for method in ("rs_mm", "mean"):
+                assert rk["checksums"][method] == \
+                    ranks[0]["checksums"][method], (method, rk["rank"])
+        self._dist_entries("sharded", "robust_all_reduce_tree rs_mm over "
+                           "Qwen3-0.6B's tree", ranks)
+        emit({"phase": "sharded", "ranks": DIST_K, "pods": DIST_PODS,
+              "backend_transport": ranks[0]["transport"],
+              "launches_per_rank": [rk["launches"] for rk in ranks],
+              "variants_per_rank": [rk["variants"] for rk in ranks],
+              "checksums_equal_across_ranks": True,
+              "max_memory_allocated_per_rank": [
+                  rk["max_memory_allocated"] for rk in ranks],
+              "gate_a_max_err_over_tol": max(
+                  g["max_abs_err"] / g["tol"] for rk in ranks
+                  for g in rk["gates"])})
+
+    def _fsdp_mode_a(self, cfg, tokens):
+        """Mode A's SGD step (lr 1, no clip) on the same seeded model and
+        batches: its update p0 - p1, the benign agents' mean gradient and
+        the all-agent mean's least shift from it, per leaf, on the host."""
+        torch = self.torch
+        from repro_torch import configs, pytree
+        from repro_torch.core import attacks
+        from repro_torch.launch import steps
+        from repro_torch.optim import optimizers
+        k = DIST_K
+        model = self._lm_model(cfg, 0, QWEN3_0P6B_PARAMS, 14)
+        sgd = optimizers.OptimizerConfig(**FSDP_SGD)
+        step = steps.make_train_step_gspmd(
+            cfg, configs.ParallelConfig(aggregation="rs_mm", use_kernel=True,
+                                        remat=True, microbatches=1),
+            sgd, "cuda", attacks.ByzantineConfig(
+                num_malicious=1, attack="additive",
+                attack_kwargs=(("delta", DIST_DELTA),)), k_agents=k)
+        leaves = pytree.flatten(model.tree())[0]
+        p0 = [t.detach().clone() for t in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(model, optimizers.init(sgd, model.tree()),
+                       {"tokens": tokens})
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out = {"update": [], "benign": [], "shift": []}
+        with torch.no_grad():
+            for a, b, s in zip(p0, leaves, step.last_stacks):
+                out["update"].append((a - b).cpu())
+                benign = s[:k - 1].mean(0)
+                out["benign"].append(benign.cpu())
+                out["shift"].append(float((s.mean(0) - benign).abs().min()))
+        step.last_stacks = step.last_aggregate = None
+        del model, p0, leaves, step
+        torch.cuda.empty_cache()
+        return out, {"mode_a_host_ms": host_ms, "mode_a_loss": float(m["loss"])}
+
+    def fsdp_train(self):
+        """Mode B on full-size Qwen3-0.6B over DIST_K agent processes:
+        Mode A's update first (here, kept on the host), then the ranks."""
+        import os
+        import shutil
+        import tempfile
+        torch = self.torch
+        from repro_torch import configs
+        cfg = configs.load_arch("qwen3-0.6b").model
+        g = torch.Generator(device=self.dev).manual_seed(11)
+        tokens = torch.randint(0, cfg.vocab_size, (DIST_K, 1025), generator=g,
+                               device=self.dev, dtype=torch.int32)
+        t0 = time.perf_counter()
+        ref, mode_a = self.not_counted(lambda: self._fsdp_mode_a(cfg, tokens))
+        mode_a["mode_a_s"] = time.perf_counter() - t0
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+        try:
+            path = os.path.join(tmp, "mode_a.pt")
+            t0 = time.perf_counter()
+            torch.save(ref, path)
+            mode_a["mode_a_save_s"] = time.perf_counter() - t0
+            del ref
+            t0 = time.perf_counter()
+            ranks = self._spawn(_fsdp_train_rank, path, tokens.cpu().numpy())
+            mode_a["ranks_s"] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for rk in ranks:
+            for row in rk["rows"]:
+                emit(dict(row, phase="fsdp_train"))
+        for rk in ranks:
+            for g in rk["gates"]:
+                emit(dict(g, phase="fsdp_train_leaf"))
+        ln_v = math.log(cfg.vocab_size)
+        hooked = sum(1 for g in ranks[0]["gates"] if g["fsdp_dim"] >= 0)
+        per_step = cfg.num_layers * hooked + (len(ranks[0]["gates"]) - hooked)
+        for rk in ranks:
+            for row in rk["rows"]:
+                assert row["launches"] == {"single_pass": per_step,
+                                           "two_pass": 0}, row
+                assert math.isfinite(row["loss"]) and \
+                    math.isfinite(row["grad_norm"]), row
+            assert abs(rk["rows"][0]["loss"] - ln_v) <= 1.5, rk["rows"][0]
+            for g in rk["gates"]:
+                assert g["finite"], g
+                assert g["off"] <= max(2, g["size"] // 100), g       # (a)
+                assert g["max_err"] <= g["tol_max"], g
+                assert g["max_dev_from_benign_mean"] < 1.0, g         # (b)
+                assert g["min_mean_shift"] >= 0.9 * DIST_DELTA / DIST_K, g
+        self._dist_entries("fsdp_train", "Qwen3-0.6B Mode B step", ranks)
+        emit(dict({"phase": "fsdp_train", "arch": cfg.name, "ranks": DIST_K,
+                   "seq_len": 1024, "steps": 1 + FSDP_TRAIN_STEPS,
+                   "launches_per_step_per_rank": per_step,
+                   "transport": ranks[0]["transport"],
+                   "launches_per_rank": [rk["launches"] for rk in ranks],
+                   "variants_per_rank": [rk["variants"] for rk in ranks],
+                   "ln_vocab": ln_v,
+                   "gate_a_max_err_over_tol": max(
+                       g["max_err"] / g["tol_max"] for rk in ranks
+                       for g in rk["gates"] if g["tol_max"]),
+                   "gate_a_max_off_share": max(
+                       g["off"] / g["size"] for rk in ranks
+                       for g in rk["gates"]),
+                   "gate_b_max_dev": max(g["max_dev_from_benign_mean"]
+                                         for rk in ranks for g in rk["gates"]),
+                   "min_mean_shift": min(g["min_mean_shift"]
+                                         for g in ranks[0]["gates"]),
+                   "drift_after_adam": {rk["rank"]: rk["drift"]
+                                        for rk in ranks},
+                   "max_memory_allocated_per_rank": [
+                       max(row["max_memory_allocated"] for row in rk["rows"])
+                       for rk in ranks]}, **mode_a))
+
+    def _fsdp_serve_reference(self, cfg, prompt):
+        """Mode A's unsharded prefill, and greedy decode from the prompt's
+        first token: its logits at the checked positions and its tokens."""
+        torch = self.torch
+        from repro_torch.launch import steps
+        from repro_torch.models import model as M
+        v = cfg.vocab_size
+        model = self._lm_model(cfg, 1, QWEN3_0P6B_PARAMS, 14)
+        last = steps.make_prefill_step(cfg, "cuda")(model, {"tokens": prompt})
+        cache = M.init_cache(cfg, prompt.shape[0], LM_SERVE_TOKENS,
+                             device="cuda")
+        tok, logits_at, toks = prompt[:, :1], [], []
+        with torch.no_grad():
+            for t in range(LM_SERVE_TOKENS):
+                logits, cache = M.decode_step(model, cfg, tok, cache)
+                if t < FSDP_SERVE_CHECKED:
+                    logits_at.append(logits[:, 0, :v].float().cpu())
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                toks.append(tok.cpu())
+        out = {"prefill": last[:, 0, :v].float().cpu(),
+               "logits": torch.stack(logits_at, dim=1),
+               "tokens": torch.cat(toks, dim=1)}
+        del model, cache
+        torch.cuda.empty_cache()
+        return out
+
+    def fsdp_serve(self):
+        """The FSDP prefill and decode steps on full-size Qwen3-0.6B over
+        DIST_K agent processes, one row of the batch each, held to Mode
+        A's unsharded steps on the same parameters."""
+        import os
+        import shutil
+        import tempfile
+        torch = self.torch
+        from repro_torch import configs
+        cfg = configs.load_arch("qwen3-0.6b").model
+        g = torch.Generator(device=self.dev).manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size, (DIST_K, LM_SERVE_PROMPT),
+                               generator=g, device=self.dev,
+                               dtype=torch.int32)
+        ref = self._fsdp_serve_reference(cfg, prompt)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_serve_")
+        try:
+            path = os.path.join(tmp, "mode_a.pt")
+            torch.save(ref, path)
+            ranks = self._spawn(_fsdp_serve_rank, path, prompt.cpu().numpy())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for rk in ranks:
+            emit(dict(rk, phase="fsdp_serve", batch=DIST_K,
+                      prompt=LM_SERVE_PROMPT, generated=LM_SERVE_TOKENS))
+        for rk in ranks:
+            assert rk["prefill_max_err"] <= rk["tol"], rk
+            assert max(rk["decode_vs_mode_a_max_err"]) <= rk["tol"], rk
+            assert all(t < rk["vocab"] for t in rk["generated_head"]), rk
+
     def kernels_line(self) -> None:
         rows = []
         for entry in self.kernels.values():
@@ -1712,6 +2021,402 @@ class Smoke:
             rows.append(dict(entry, route="cuda",
                              parity_max_abs_err=self.parity_err[kernel]))
         print(json.dumps({"kernels": rows}), flush=True)
+
+
+# ===========================================================================
+# the agent ranks of the sharded, fsdp_train and fsdp_serve phases: each
+# runs in its own process (launch.mesh.run_ranks), DIST_K of them on
+# cuda:0 over gloo, and returns plain numbers to the parent
+# ===========================================================================
+
+FSDP_SGD = dict(name="sgd", learning_rate=1.0, grad_clip=0.0, warmup_steps=0,
+                schedule_kind="constant")
+
+
+def _checksum(torch, t) -> int:
+    """An order-sensitive integer checksum of a float32 tensor's bits."""
+    bits = t.contiguous().view(torch.int32).reshape(-1)
+    total = 0
+    for lo in range(0, bits.numel(), 1 << 24):
+        b = bits[lo:lo + (1 << 24)].to(torch.int64)
+        w = torch.arange(lo, lo + b.numel(), device=b.device) % 65521 + 1
+        total += int((b * w).sum())
+    return total
+
+
+def _rank_setup():
+    """torch and a Smoke for this rank (its helpers; no phase runs)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch, Smoke(torch, None)
+
+
+def _time_blocks(smoke, blocks: dict) -> list:
+    """Each (K, M) block's kernel, timed as the kernels line times it and
+    held to its plain version on the same block."""
+    torch = smoke.torch
+    from repro_torch.kernels import mm_aggregate as mk
+    rows = []
+    for (k, m), x in sorted(blocks.items()):
+        plan = mk.launch_plan(k, m, 1)
+        uniform = torch.full((k, 1), 1.0 / k, device=smoke.dev)
+        call = lambda: mk.single_pass(x, uniform, plan, weighted=False)
+        call_ms, got = smoke.not_counted(lambda: smoke.time_ms(call))
+        ms, _ = smoke.not_counted(lambda: smoke.kernel_ms(call))
+        prof, by_name = smoke.not_counted(lambda: smoke.profiler_ms(call))
+        plain_ms, err = smoke.plain_check(x, uniform, got, plan, False,
+                                          chunk=2 ** 24)
+        t, by = bound(plan.total_bytes, mm_ops(k, m, 1, False))
+        rows.append(dict(k=k, m=m, variant=plan.variant, ms=ms,
+                         call_ms=call_ms, profiler_ms=prof,
+                         profiler_kernels=by_name, plain_ms=plain_ms,
+                         max_abs_err=err,
+                         tol=1e-5 * max(1.0, float(got.abs().max())),
+                         bound_ms=t, bound_by=by, block_m=plan.block_m))
+    return rows
+
+
+def _probe_collectives(torch, sharded, axis, dev, mib: int = 256) -> dict:
+    """Each collective core.sharded uses, on CUDA tensors of this
+    backend: checked on a small tensor, then timed on ``mib`` MiB (host
+    seconds, barrier to synchronize)."""
+    import torch.distributed as dist
+    k, r = axis.size, axis.index
+    x = torch.arange(4 * k, dtype=torch.float32, device=dev) + 100 * r
+    ag = sharded.all_gather(x, axis)
+    assert torch.equal(ag[k - 1], x - 100 * r + 100 * (k - 1)), ag
+    a2a = sharded.all_to_all(x.reshape(k, 4), axis)
+    assert torch.equal(a2a[k - 1], x.reshape(k, 4)[r] + 100 * (k - 1 - r))
+    rs = sharded.reduce_scatter_sum(x, axis)
+    assert torch.equal(rs, k * x.reshape(k, 4)[r] - 100 * r * k
+                       + 100 * k * (k - 1) / 2), rs
+    ar = sharded.all_reduce_sum(x, axis)
+    assert torch.equal(ar, k * (x - 100 * r) + 100 * k * (k - 1) / 2), ar
+    big = torch.ones((k, mib * 2 ** 20 // 4 // k), device=dev)
+    out = {}
+    for name, fn in (("all_gather", lambda: sharded.all_gather(big[0], axis)),
+                     ("all_to_all", lambda: sharded.all_to_all(big, axis)),
+                     ("reduce_scatter",
+                      lambda: sharded.reduce_scatter_sum(big, axis)),
+                     ("all_reduce", lambda: sharded.all_reduce_sum(big, axis))):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    out["mib"] = mib
+    return out
+
+
+def _sharded_rank(mesh, seed):
+    """One agent of the sharded phase: its own update shaped like
+    Qwen3-0.6B's tree through robust_all_reduce_tree (rs_mm, then mean)
+    on the kernel, gated leaf by leaf; then one decoder layer's rs_mm
+    against gather_mm and hier_mm against its pods' mean."""
+    torch, smoke = _rank_setup()
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.core import sharded
+    from repro_torch.kernels import mm_aggregate as mk
+    dev, agents = smoke.dev, mesh.agents
+    r, k = agents.index, agents.size
+    probe = _probe_collectives(torch, sharded, agents, dev)
+    shapes, treedef = qwen3_shapes()
+    gen = torch.Generator(device=dev).manual_seed(seed * 1009 + r)
+    leaves = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    if r == k - 1:
+        for leaf in leaves:
+            leaf.add_(DIST_DELTA)
+    tree = pytree.unflatten(treedef, leaves)
+    runs = {}
+
+    def drive():
+        for method in ("rs_mm", "mean"):
+            dist.barrier()
+            torch.cuda.synchronize()
+            sent = dict(sharded.TRAFFIC)
+            t0 = time.perf_counter()
+            est = sharded.robust_all_reduce_tree(
+                tree, agents, method=method, aggregator="mm_pallas")
+            torch.cuda.synchronize()
+            runs[method] = {
+                "host_ms": (time.perf_counter() - t0) * 1e3,
+                "sent": {c: sharded.TRAFFIC[c] - sent[c] for c in sent
+                         if sharded.TRAFFIC[c] > sent[c]},
+                "est": pytree.flatten(est)[0]}
+
+    _, counts, variants = smoke.main_path(drive)
+    by_shape = {str(key): n for key, n in smoke.by_shape.items()}
+    # every leaf's local (K, M/K) block, as rs_mm's all-to-all gave it
+    # (each Qwen3 leaf's size divides K: no pad), against the plain
+    # version; one block of each shape kept for the kernels line
+    uniform = torch.full((k, 1), 1.0 / k, device=dev)
+    names = pytree.leaf_paths(tree)
+    gates, blocks = [], {}
+    for name, x, est in zip(names, leaves, runs["rs_mm"]["est"]):
+        block = sharded.all_to_all(x.reshape(k, -1), agents)
+        got = est.reshape(k, -1)[r:r + 1]
+        plan = mk.launch_plan(k, block.shape[1], 1)
+        plain_ms, err = smoke.plain_check(block, uniform, got, plan, False,
+                                          chunk=2 ** 24)
+        est_max = float(got.abs().max())
+        gates.append({"leaf": name, "m": block.shape[1],
+                      "variant": plan.variant, "max_abs_err": err,
+                      "tol": 1e-5 * max(1.0, est_max), "est_max": est_max,
+                      "finite": bool(torch.isfinite(est).all()),
+                      "plain_ms": plain_ms})
+        blocks.setdefault((k, block.shape[1]), block)
+        del block
+    checksums = {m: [_checksum(torch, e) for e in runs[m]["est"]]
+                 for m in runs}
+    for m in runs:
+        del runs[m]["est"]
+    del tree, leaves
+    torch.cuda.empty_cache()
+    # one decoder layer: rs_mm against gather_mm, hier_mm (2 pods x 2)
+    # against the mean of its pods' gather_mm estimates
+    m_layer = layer_width()
+    g2 = torch.Generator(device=dev).manual_seed(seed * 7919 + r)
+    x = torch.randn(m_layer, generator=g2, device=dev)
+    if r == k - 1:
+        x += DIST_DELTA
+    pod, data = mesh.axis("pod"), mesh.axis("data")
+
+    def layer():
+        rs = sharded.rs_mm(x, agents, aggregator="mm_pallas")
+        ga = sharded.gather_mm(x, agents, aggregator="mm_pallas")
+        hier = sharded.robust_all_reduce(x, (pod, data), method="hier_mm",
+                                         aggregator="mm_pallas")
+        pods = sharded.all_gather(
+            sharded.gather_mm(x, data, aggregator="mm_pallas"), pod)
+        return rs, ga, hier, (pods[0] + pods[1]) / 2
+
+    rs, ga, hier, pod_mean = smoke.not_counted(layer)
+    tol = 1e-5 * max(1.0, float(ga.abs().max()))
+    layer_row = {
+        "m": m_layer, "tol": tol,
+        "rs_mm_variant": mk.launch_plan(k, m_layer // k, 1).variant,
+        "gather_mm_variant": mk.launch_plan(k, m_layer, 1).variant,
+        "rs_vs_gather_max_err": float((rs - ga).abs().max()),
+        "rs_equals_gather": bool(torch.equal(rs, ga)),
+        "hier_inner_variant": mk.launch_plan(data.size, m_layer // data.size,
+                                             1).variant,
+        "pod_gather_variant": mk.launch_plan(data.size, m_layer, 1).variant,
+        "hier_vs_pod_mean_max_err": float((hier - pod_mean).abs().max()),
+        "hier_tol": 1e-5 * max(1.0, float(pod_mean.abs().max()))}
+    del rs, ga, hier, pod_mean, x
+    dist.barrier()          # the card is rank 0's alone while it times
+    timing = _time_blocks(smoke, blocks) if r == 0 else []
+    dist.barrier()
+    return {"rank": r, "transport": sharded.transport(agents),
+            "probe": probe,
+            "launches": counts, "variants": variants, "by_shape": by_shape,
+            "collectives": {m: {c: v for c, v in runs[m].items()}
+                            for m in runs},
+            "gates": gates, "checksums": checksums, "layer": layer_row,
+            "timing": timing,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _fsdp_local(torch, cfg, seed, k, r):
+    """This rank's Mode B shards of the seeded full model (the parent's
+    Mode A model: the same generator on the same card)."""
+    from repro_torch import pytree
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    full = pytree.tree_map(lambda t: t.detach(),
+                           M.init_model(cfg, seed=seed, device="cuda").tree())
+    local = steps.shard_params(full, k, r)
+    del full
+    torch.cuda.empty_cache()
+    return local
+
+
+def _fsdp_train_rank(mesh, ref_path, tokens):
+    """One agent of fsdp_train: Mode B on full-size Qwen3-0.6B, its
+    shards of the seeded model and its row of the batch.  A first SGD
+    step at lr 1 without clip (its update held to Mode A's, which the
+    parent computed), then FSDP_TRAIN_STEPS Adam steps with clip 1.0;
+    the replicated leaves' drift across ranks after them."""
+    torch, smoke = _rank_setup()
+    import torch.distributed as dist
+    from repro_torch import configs, pytree
+    from repro_torch.core import attacks, sharded
+    from repro_torch.kernels import mm_aggregate as mk
+    from repro_torch.launch import steps
+    from repro_torch.optim import optimizers
+    dev, agents = smoke.dev, mesh.agents
+    r, k = agents.index, agents.size
+    cfg = configs.load_arch("qwen3-0.6b").model
+    local = _fsdp_local(torch, cfg, 0, k, r)
+    leaves = pytree.flatten(local)[0]
+    names = pytree.leaf_paths(local)
+    dims = pytree.flatten(steps.fsdp_dims(steps.param_template(cfg), k))[0]
+    par = configs.ParallelConfig(fsdp=True, aggregation="rs_mm",
+                                 use_kernel=True, remat=True, microbatches=1)
+    byz = attacks.ByzantineConfig(num_malicious=1, attack="additive",
+                                  attack_kwargs=(("delta", DIST_DELTA),))
+    sgd = optimizers.OptimizerConfig(**FSDP_SGD)
+    # launch.train's Adam for a run of FSDP_TRAIN_STEPS steps, clip 1.0
+    adam = optimizers.OptimizerConfig(learning_rate=3e-3, warmup_steps=1,
+                                      total_steps=FSDP_TRAIN_STEPS)
+    batch = {"tokens": torch.from_numpy(tokens[r:r + 1]).to(dev)}
+    p0 = [t.detach().clone() for t in leaves]
+    rows, stash, state = [], {}, {}
+
+    def one(step, opt, label):
+        before = [dict(c) for c in smoke._counts()]
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        launches, variants, by_shape = (
+            {key: c[key] - b.get(key, 0) for key in c}
+            for c, b in zip(smoke._counts(), before))
+        rows.append({"step": label, "rank": r, "host_ms": host_ms,
+                     "device_ms": step.phase_ms(), "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "launches": launches, "variants": variants,
+                     "by_shape": {str(key): n for key, n in by_shape.items()
+                                  if n},
+                     "sent_bytes": step.traffic,
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated()})
+        return opt
+
+    def run():
+        one(steps.make_train_step_fsdp(cfg, par, sgd, mesh, byz),
+            optimizers.init(sgd, local), "sgd")
+        with torch.no_grad():
+            state["update"] = [a - b for a, b in zip(p0, leaves)]
+            for p, q in zip(leaves, p0):
+                p.copy_(q)
+        p0.clear()
+        step = steps.make_train_step_fsdp(cfg, par, adam, mesh, byz)
+        opt = optimizers.init(adam, local)
+        for i in range(FSDP_TRAIN_STEPS):
+            last = r == 0 and i == FSDP_TRAIN_STEPS - 1
+            orig = mk.single_pass
+            if last:
+                # keep one input of each (K, M) the last step aggregates,
+                # for the kernels line (the clone is no launch)
+                def spy(x, a, plan, **kw):
+                    stash.setdefault(tuple(x.shape), x.clone())
+                    return orig(x, a, plan, **kw)
+                mk.single_pass = spy
+            try:
+                opt = one(step, opt, f"adam{i + 1}")
+            finally:
+                mk.single_pass = orig
+
+    _, counts, variants = smoke.main_path(run)
+    by_shape = {str(key): n for key, n in smoke.by_shape.items()}
+    # gates (a) and (b): the SGD update against Mode A's, and against
+    # the benign agents' mean gradient (Mode A's stacks)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    gates = []
+    for i, (name, d) in enumerate(zip(names, dims)):
+        want, benign = ref["update"][i], ref["benign"][i]
+        if d >= 0:
+            n = want.shape[d] // k
+            want, benign = want.narrow(d, r * n, n), benign.narrow(d, r * n, n)
+        want, benign = want.to(dev), benign.to(dev)
+        upd = state["update"][i]
+        diff = (upd - want).abs()
+        want_max = float(want.abs().max())
+        gates.append({"leaf": name, "rank": r, "fsdp_dim": d,
+                      "size": want.numel(), "max_err": float(diff.max()),
+                      "off": int((diff > 1e-6 + 1e-5 * want.abs()).sum()),
+                      "want_max": want_max, "tol_max": 2.0 ** -8 * want_max,
+                      "max_dev_from_benign_mean": float(
+                          (upd - benign).abs().max()),
+                      "min_mean_shift": float(ref["shift"][i]),
+                      "finite": bool(torch.isfinite(upd).all())})
+        del want, benign, diff
+    del ref, state["update"]
+    # (d): the replicated leaves' drift from rank 0's copy
+    drift = {}
+    with torch.no_grad():
+        for name, t, d in zip(names, leaves, dims):
+            if d < 0:
+                buf = t.detach().clone()
+                dist.broadcast(buf, src=0)
+                drift[name] = float((t - buf).abs().max())
+                del buf
+    dist.barrier()          # the card is rank 0's alone while it times
+    timing = _time_blocks(smoke, stash) if r == 0 else []
+    dist.barrier()
+    return {"rank": r, "rows": rows, "gates": gates, "drift": drift,
+            "launches": counts, "variants": variants, "by_shape": by_shape,
+            "timing": timing, "transport": sharded.transport(agents)}
+
+
+def _fsdp_serve_rank(mesh, ref_path, prompt):
+    """One agent of fsdp_serve: its shards of the seeded model serve its
+    row of the prompt: a timed prefill, decode logits teacher-forced on
+    Mode A's greedy tokens (FSDP_SERVE_CHECKED positions), then
+    LM_SERVE_TOKENS greedy tokens through the step, timed."""
+    torch, smoke = _rank_setup()
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import sharded
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    dev, agents = smoke.dev, mesh.agents
+    r, k = agents.index, agents.size
+    cfg = configs.load_arch("qwen3-0.6b").model
+    v = cfg.vocab_size
+    local = _fsdp_local(torch, cfg, 1, k, r)
+    ref = torch.load(ref_path, weights_only=True)
+    toks = torch.from_numpy(prompt[r:r + 1]).to(dev)
+    prefill = steps.make_prefill_step(cfg, "cuda", fsdp=True, mesh=mesh)
+    dist.barrier()
+    sent = sum(sharded.TRAFFIC.values())
+    prefill_ms, last = smoke.time_ms(lambda: prefill(local, {"tokens": toks}),
+                                     reps=1)
+    prefill_sent = (sum(sharded.TRAFFIC.values()) - sent) // 2
+    prefill_err = float((last[0, 0, :v].float()
+                         - ref["prefill"][r].to(dev)).abs().max())
+    hook = steps.make_serve_hook(mesh, steps.block_dims_tree(
+        steps.param_template(cfg)["blocks"], k))
+    cache = M.init_cache(cfg, 1, FSDP_SERVE_CHECKED, device="cuda")
+    errs = []
+    with torch.no_grad():
+        for t in range(FSDP_SERVE_CHECKED):
+            tok = toks[:, :1] if t == 0 else \
+                ref["tokens"][r:r + 1, t - 1:t].to(dev)
+            logits, cache = M.decode_step(local, cfg, tok, cache,
+                                          layer_hook=hook)
+            errs.append(float((logits[0, 0, :v].float()
+                               - ref["logits"][r, t].to(dev)).abs().max()))
+    decode = steps.make_decode_step(cfg, "cuda", fsdp=True, mesh=mesh)
+    cache = M.init_cache(cfg, 1, LM_SERVE_TOKENS, device="cuda")
+    dist.barrier()
+    torch.cuda.synchronize()
+    sent = sum(sharded.TRAFFIC.values())
+    t0 = time.perf_counter()
+    tok, out = toks[:, :1], []
+    for _ in range(LM_SERVE_TOKENS):
+        tok, cache = decode(local, tok, cache)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_SERVE_TOKENS
+    gen = torch.cat(out, dim=1).cpu()
+    return {"rank": r, "prefill_ms": prefill_ms, "prefill_max_err": prefill_err,
+            "prefill_sent_bytes": prefill_sent,
+            "decode_vs_mode_a_max_err": errs,
+            "tol": LM_SERVE_TOL * max(1.0, float(ref["logits"][r].abs().max())),
+            "decode_ms_per_token": decode_ms,
+            "decode_sent_bytes_per_token":
+                (sum(sharded.TRAFFIC.values()) - sent) // LM_SERVE_TOKENS,
+            "greedy_tokens_as_mode_a": int((gen[0] == ref["tokens"][r]).sum()),
+            "generated_head": gen[0, :8].tolist(), "vocab": v,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
 def main(argv=None) -> int:

@@ -19,6 +19,10 @@ Registry:
   scm        -- sensitivity-curve maximization [Schroth et al. 2024]:
                 median + zeta * c * MADN of the benign updates
 
+``apply_local`` is the per-rank form (one agent a process, as in the
+collectives and the Mode B step): additive, sign_flip, zero and scale
+applied to this rank's own values when it is malicious.
+
 ``ByzantineConfig.schedule`` makes the malicious set a function of the
 step: ``static`` (the last ``num_malicious`` agents), ``intermittent``
 (the set attacks every other ``period`` steps) and ``rotating`` (the set
@@ -92,6 +96,31 @@ def scm(honest, mask, generator=None, step=0, *, zeta: float = 0.9,
     madn = location.weighted_median(dev, b, axis=0) * location.MAD_CONSISTENCY
     target = (med + zeta * c * madn).reshape(honest.shape[1:])
     return _apply_mask(honest, target.expand_as(honest), mask)
+
+
+def apply_local(g, is_malicious, kind: str, kwargs: Optional[dict] = None):
+    """Per-rank attack (one agent a rank, as in the collectives and Mode
+    B): ``is_malicious`` says whether *this* rank attacks (a bool or a
+    scalar bool tensor); ``g`` is a pytree of its honest values.
+    Collusion attacks (alie, scm) and gaussian have no local form."""
+    kwargs = kwargs or {}
+    if kind == "additive":
+        delta = kwargs.get("delta", 1000.0)
+        fn = lambda x: x + delta
+    elif kind == "sign_flip":
+        gamma = kwargs.get("gamma", 1.0)
+        fn = lambda x: -gamma * x
+    elif kind == "zero":
+        fn = torch.zeros_like
+    elif kind == "scale":
+        gamma = kwargs.get("gamma", 50.0)
+        fn = lambda x: gamma * x
+    else:
+        raise ValueError(f"attack {kind!r} has no local form")
+    if isinstance(is_malicious, torch.Tensor):
+        return pytree.tree_map(
+            lambda x: torch.where(is_malicious.to(x.device), fn(x), x), g)
+    return pytree.tree_map(fn, g) if is_malicious else g
 
 
 _REGISTRY: dict[str, Attack] = {

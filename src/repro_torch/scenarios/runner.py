@@ -14,8 +14,15 @@ from the kernel workloads the engine resolved
 first use and their first launch; ``wall_clock_s`` times the rest.
 
 The ``substrate`` adapter lives in ``scenarios.substrate``, imported at
-first use.  ``sharded`` is not ported yet and raises
-``NotImplementedError``.
+first use.
+
+The ``sharded`` paradigm defaults to the stacked single-program lowering
+(one process: K per-agent gradients, one robust aggregate a step).
+``paradigm_kwargs`` ``(("collective", "rs_mm"),)`` opts into the real
+per-rank lowering: ``run`` is then called on each of K ranks of an
+initialised process group (one agent a rank), each draws the full
+replicated stack from the same seeded generator, keeps its own row and
+aggregates with ``core.sharded.robust_all_reduce``.
 """
 
 from __future__ import annotations
@@ -24,9 +31,10 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import devices
-from repro_torch.core import diffusion, federated
+from repro_torch.core import diffusion, federated, sharded
 from repro_torch.data import synthetic
 from repro_torch.kernels import mm_aggregate, ops
 from repro_torch.scenarios import metrics, registry
@@ -76,6 +84,44 @@ def _federated_step_fn(grad_fn, config, w_star):
     def step(w, generator, i):
         w_next = federated.federated_round(
             w, generator, grad_fn=grad_fn, config=config, step=i)
+        return w_next, {
+            "msd": metrics.msd_single(w_next, w_star),
+            "consensus": torch.zeros((), dtype=w_next.dtype,
+                                     device=w_next.device),
+        }
+    return step
+
+
+def _sharded_step_fn(grad_fn, agg_fn, byz, k_agents, step_size, w_star):
+    """Distributed SGD with a robust all-reduce, stacked lowering: one
+    shared model, K per-agent gradients, one robust aggregate a step
+    (the Mode A train step's semantics on the linear problem)."""
+    def step(w, generator, i):
+        grads = grad_fn(w.expand((k_agents,) + tuple(w.shape)), generator)
+        grads = byz.apply(grads, generator, i)
+        w_next = w - step_size * agg_fn(grads, None)
+        return w_next, {
+            "msd": metrics.msd_single(w_next, w_star),
+            "consensus": torch.zeros((), dtype=w_next.dtype,
+                                     device=w_next.device),
+        }
+    return step
+
+
+def _sharded_collective_step_fn(grad_fn, byz, k_agents, step_size, w_star,
+                                method, agg_name, agg_kwargs, mesh):
+    """The per-rank lowering: this rank owns one agent's gradient and the
+    aggregate is a ``core.sharded.robust_all_reduce`` over the mesh, the
+    building block the robust-FSDP step applies per layer.  Every rank
+    draws the same replicated stack (collusion attacks need all of it)
+    and keeps its own row."""
+    def step(w, generator, i):
+        grads = grad_fn(w.expand((k_agents,) + tuple(w.shape)), generator)
+        grads = byz.apply(grads, generator, i)
+        est = sharded.robust_all_reduce(
+            grads[mesh.agent_index], mesh, method=method,
+            aggregator=agg_name, **agg_kwargs)
+        w_next = w - step_size * est
         return w_next, {
             "msd": metrics.msd_single(w_next, w_star),
             "consensus": torch.zeros((), dtype=w_next.dtype,
@@ -155,9 +201,37 @@ def _federated_adapter(spec: ScenarioSpec, device: torch.device):
 
 @registry.register_paradigm("sharded")
 def _sharded_adapter(spec: ScenarioSpec, device: torch.device):
-    raise NotImplementedError(
-        "the sharded paradigm (core/sharded.py collectives over "
-        "torch.distributed) is not ported yet: ROADMAP queue 1, item 2")
+    problem = _problem(spec)
+    grad_fn = synthetic.make_stacked_grad_fn(
+        problem, spec.num_agents, data=spec.data, alpha=spec.dirichlet_alpha,
+        seed=spec.data_seed, device=device)
+    agg_name, agg_kw = spec.resolved_aggregator()
+    byz = spec.byzantine()
+    w_star = problem.w_star(device)
+    w0 = torch.zeros_like(w_star)
+    collective = dict(spec.paradigm_kwargs).get("collective")
+    if collective:
+        # the reference's guards: its shard_map region cannot host a
+        # pallas_call, and it needs one device per agent
+        if spec.backend == "pallas":
+            raise ValueError(
+                "collective sharded scenarios keep the reference's rule: "
+                "backend='jnp' (its per-rank region hosts no kernel)")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != spec.num_agents:
+            raise RuntimeError(
+                f"collective sharded scenario runs one agent a rank: needs a "
+                f"process group of {spec.num_agents} ranks, have {world}")
+        from repro_torch.launch.mesh import AgentMesh
+        method = "mean" if agg_name == "mean" else collective
+        step = _sharded_collective_step_fn(
+            grad_fn, byz, spec.num_agents, spec.step_size, w_star, method,
+            agg_name, agg_kw, AgentMesh())
+    else:
+        step = _sharded_step_fn(grad_fn,
+                                sharded.engine_aggregator(agg_name, **agg_kw),
+                                byz, spec.num_agents, spec.step_size, w_star)
+    return registry.Lowering(w0, step)
 
 
 @registry.register_paradigm("substrate")
@@ -201,7 +275,8 @@ def _validated_override(state0, w0, spec: ScenarioSpec):
         raise ValueError(
             f"w0 override has shape {tuple(w0.shape)}, but paradigm "
             f"{spec.paradigm!r} expects state of shape {tuple(state0.shape)} "
-            f"((K, M) stacked agent models for diffusion, (M,) for federated)")
+            "((K, M) stacked agent models for diffusion, (M,) for "
+            "federated/sharded)")
     return w0.to(dtype=state0.dtype, device=state0.device)
 
 

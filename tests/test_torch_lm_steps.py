@@ -137,9 +137,16 @@ def test_step_phases_errors_and_agents():
     with pytest.raises(ValueError, match="3 agents"):
         step(tp, TO.init(ocfg, tp), {"tokens": torch.from_numpy(toks)})
     assert step.phase_ms() == {}         # no CUDA events off the card
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        TS.make_train_step_gspmd(tcfg, tconfigs.ParallelConfig(fsdp=True),
-                                 ocfg, "cpu")
+    # Mode A ignores the fsdp flag, as the reference's does (Mode B is
+    # make_train_step_fsdp): the same step either way
+    aggs = []
+    for fsdp in (False, True):
+        tp_f = _port_params(jp)
+        st = TS.make_train_step_gspmd(
+            tcfg, tconfigs.ParallelConfig(fsdp=fsdp), ocfg, "cpu", k_agents=2)
+        st(tp_f, TO.init(ocfg, tp_f), {"tokens": torch.from_numpy(toks)})
+        aggs.append(st.last_aggregate)
+    assert all(torch.equal(a, b) for a, b in zip(*aggs))
     krum = TS.make_train_step_gspmd(
         tcfg, tconfigs.ParallelConfig(aggregation="krum"), ocfg, "cpu",
         k_agents=2)

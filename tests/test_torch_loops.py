@@ -209,9 +209,16 @@ def test_spec_keeps_the_reference_fields_and_labels():
 
 @pytest.mark.parametrize("paradigm,queue", [("sharded", "queue 1, item 2")])
 def test_unported_paradigms_name_their_roadmap_queue(paradigm, queue):
+    """The last paradigm that named its ROADMAP queue (``queue``) is
+    ported: its stacked lowering runs on one process, and its collective
+    lowering asks for a process group instead of refusing."""
     sp = scenarios.ScenarioSpec(paradigm=paradigm, num_steps=2)
-    with pytest.raises(NotImplementedError, match=queue):
-        scenarios.run(sp, device="cpu")
+    res = scenarios.run(sp, device="cpu")
+    assert res.finite() and res.history["msd"].shape == (2,)
+    with pytest.raises(RuntimeError, match="process group of 16 ranks"):
+        scenarios.run(scenarios.ScenarioSpec(
+            paradigm=paradigm, num_steps=2,
+            paradigm_kwargs=(("collective", "rs_mm"),)), device="cpu")
 
 
 def test_run_audits_the_kernel_launches_and_splits_timing():
