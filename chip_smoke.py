@@ -33,6 +33,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
               kernel backend: steady MSD < 1e-2; the mean aggregator as the
               breakdown contrast; the Robust-FedAvg MM setting of
               examples/federated.py.  The single-pass kernel must launch.
+              The C3 spec runs twice: the second run hits the runner's
+              executable cache (compile_s == 0.0) and its histories equal
+              the first's bit for bit; both wall_clock_s are printed.
   4 cohort    the large_cohort family's federated smoke spec (1024 clients
               at participation 0.5: a 512-agent aggregation).  The
               two-pass kernel must launch and the MSD stay finite.
@@ -51,8 +54,38 @@ Phases, each printing one JSON line (any failure exits nonzero):
               from a seed (32.2 GB), through AggregationEngine.aggregate:
               one two-pass launch, checked against the plain version
               over every column, timed as the other entries.
+  8 autotune  tuning.autotune with REPRO_TORCH_TUNING_CACHE set to a file
+              of a temporary directory, at (8, 751,894,528, 1) (Qwen3-0.6B's
+              tree, 24.1 GB of x), (128, 15,730,944, 1) (serve_cohort's
+              geometry) and (32, 10, 32) (the paper's diffusion step):
+              every candidate's (block_m, block_k, path, variant) and ms,
+              the winner, the heuristic's ms.  Gates: (a) a fresh process
+              with the same environment reads the file and get_choice
+              returns each winner; (b) AggregationEngine(autotune=True)
+              .aggregate_tree over K = 8 Qwen3-0.6B-shaped updates (agent 7
+              +1000) and .aggregate at the cohort shape launch the winner's
+              variant/path (the workload record, LAUNCHES_BY_SHAPE), bit-
+              equal to the wrapper's launch of that plan; (c) each within
+              the parity tolerance of the plain version of that plan over
+              every column; (d) a second autotune without force times
+              nothing.  Then the cache is emptied and the variable unset:
+              no later phase launches another geometry than it checks.
+  9 entry_points  the port's examples, in this process through their
+              main (python -m repro_torch.examples.<name>): quickstart and
+              federated as the reference sizes them (REF/MM steady MSD <
+              1e-2, the attacked mean broke down); scenario_sweep --smoke
+              and --family large_cohort --smoke, --json into a temporary
+              directory (every row finite, a launch audit on every kernel
+              row, the single-pass kernel launched by the preset and the
+              two-pass kernel by the 512-agent cohort); serve_agg --backend
+              pallas, clean and mixed (exit 0); serve_lm for qwen3-0.6b and
+              rwkv6-1.6b (smoke configs; "OK"); train_robust_lm --steps
+              ENTRY_TRAIN_STEPS, three launch.train processes of 8 agents
+              on the kernel (REF attacked finite, its last loss below mean
+              attacked's).  Each distinct (variant, K, M, N) an example
+              launched gets a kernels-line entry.
 
-  8 serve     the streaming service (repro_torch.serve) through its
+ 10 serve     the streaming service (repro_torch.serve) through its
               replay harness, as benchmarks/serve_bench.py drives the
               JAX package: the clean, stragglers, network and mixed
               (2 tenants sharing one cache) chaos profiles, 16 agents a
@@ -64,7 +97,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               counts injected faults only.  Then a mixed replay with a
               crash at 0.5 (no duplicate admission) and two runs of one
               mixed replay, whose journals must be identical bytes.
-  9 serve_width  the service at Qwen3-0.6B's full width (M =
+ 11 serve_width  the service at Qwen3-0.6B's full width (M =
               751,894,528, every layer): 8 agents' payloads made on the
               card, agent 7 shifted by 1000, k_min 8, three full
               cohorts.  One capture, three graph replays; agent 7 an
@@ -73,11 +106,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
               the parity tolerance of the plain version over every
               column.  Per commit: submit-to-commit time and the device
               times of staging, replay, outlier check and clip.
- 10 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
+ 12 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
               layer (M = 15,730,944), the last 16 agents shifted by
               1000, two commits: the single-pass smem variant, held to
               its plain version.
- 11 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
+ 13 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
               1024, vocab 151,936 padded to 152,064, 751,894,528 f32
               parameters in 14 leaves, bf16 activations) randomly
               initialised on the card, trained 2 steps by the Mode A step
@@ -97,14 +130,14 @@ Phases, each printing one JSON line (any failure exits nonzero):
               within 1 of the benign agents' mean over
               all 751,894,528 coordinates; loss and grad_norm finite, the
               first loss within 1.5 of ln(151,936).
- 12 lm_serve  make_prefill_step and make_decode_step at the same size:
+ 14 lm_serve  make_prefill_step and make_decode_step at the same size:
               batch 4, a 512-token prompt prefilled (timed), then fed
               through the decode step into the bf16 KV cache, then 32
               greedy tokens (ms per token).  Gate: the decode logits of
               the first 16 positions, and of the last prompt position
               against the prefill's, within 2^-4 x max(1, |logits|_inf)
               of the full-sequence forward's.
- 13 ssm_train   lm_train's step and gates on full-size RWKV6-1.6B (24
+ 15 ssm_train   lm_train's step and gates on full-size RWKV6-1.6B (24
               layers, d_model 2048, d_ff 7168, vocab 65,536;
               1,583,943,680 f32 parameters in 26 leaves): K = 4 agents of
               one 1024-token sequence (16 chunks of 64), agent 3 at
@@ -113,7 +146,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               agent's gradient stack is finite in every leaf every step.
               Each leaf launched once a step, on the variant its launch
               plan picks (the wrappers' counts by shape).
- 14 ssm_serve   lm_serve on RWKV6-1.6B, but 64 prompt tokens through the
+ 16 ssm_serve   lm_serve on RWKV6-1.6B, but 64 prompt tokens through the
               decode step from a zero state (16 held to the forward),
               then 32 greedy tokens.  The same weights also run with f32
               activations: their decode is held to their forward within
@@ -121,18 +154,18 @@ Phases, each printing one JSON line (any failure exits nonzero):
               tolerance is at least twice the bf16 forward's distance
               from the f32 one (random-init RWKV6 at full width
               amplifies bf16 rounding; see LM_SERVE_TOL).
- 15 hybrid_train  the same on Zamba2-2.7B at full width cut to 12 layers
+ 17 hybrid_train  the same on Zamba2-2.7B at full width cut to 12 layers
               (2 groups of 6 Mamba2 layers, the shared attention block
               applied twice; 747,364,160 parameters in 21 leaves), K = 8:
               full depth with K >= 3 would not fit the card.
- 16 hybrid_serve  ssm_serve's run on full-size Zamba2-2.7B (54 layers).
- 17 audio_train  the same on full-size SeamlessM4T-large-v2 (24 encoder +
+ 18 hybrid_serve  ssm_serve's run on full-size Zamba2-2.7B (54 layers).
+ 19 audio_train  the same on full-size SeamlessM4T-large-v2 (24 encoder +
               24 decoder layers; 1,632,233,472 parameters in 25 leaves),
               K = 4, each agent's batch with 1024 stub frame embeddings.
- 18 audio_serve  ssm_serve's run on it, the prompt's frames through the
+ 20 audio_serve  ssm_serve's run on it, the prompt's frames through the
               encoder and the cross cache projected by hand from the
               encoder output (no prefill fills it, as in the reference).
- 19 sharded   the robust collectives (repro_torch.core.sharded) over 4
+ 21 sharded   the robust collectives (repro_torch.core.sharded) over 4
               agent processes sharing the card over gloo
               (launch.mesh.run_ranks, a 2 x 2 (pod, data) mesh): each
               collective checked and timed on CUDA tensors first (the
@@ -147,7 +180,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               same variant; hier_mm equal to its pods' mean.  Per
               collective: host ms, the kernels' CUDA-event ms, the bytes
               each rank sent.
- 20 fsdp_train  Mode B (launch.steps.make_train_step_fsdp) on full-size
+ 22 fsdp_train  Mode B (launch.steps.make_train_step_fsdp) on full-size
               Qwen3-0.6B over the 4 agent processes, each one 1024-token
               sequence, rank 3 additive at +1000, rs_mm on the kernel,
               remat.  Mode A's SGD step (lr 1, no clip) runs first here
@@ -163,7 +196,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               The replicated leaves' drift across ranks after the Adam
               steps is printed (the reference clips each rank's local
               tree by its own norm).
- 21 fsdp_serve  make_prefill_step / make_decode_step with fsdp=True on
+ 23 fsdp_serve  make_prefill_step / make_decode_step with fsdp=True on
               the same model sharded over the 4 processes, one row each:
               a 512-token prefill (timed) and decode logits teacher-
               forced on Mode A's greedy tokens (FSDP_SERVE_CHECKED
@@ -188,8 +221,9 @@ call's device time by torch.profiler: the sum over every kernel the call
 runs of its device time per launch (``profiler_kernels`` gives each
 kernel's name and share).  Each entry of the kernels line is one
 main-path run (the paper and federated scenarios, the large cohort and
-its layer-wide launch, the tree launch, the diffusion batches, each LM
-train phase: one entry per distinct (K, M, 1) leaf shape) and its
+its layer-wide launch, the tree launch, the diffusion batches, the
+autotuned engine's two launches, each example of entry_points and each
+LM train phase: one entry per distinct (variant, K, M, N)) and its
 launches are that run's own
 count: every count is set to 0 just before the run and read just after;
 launches made to time a kernel or compare it with its plain version are
@@ -215,7 +249,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
-          "cohort_width", "serve", "serve_width", "serve_cohort", "lm_train",
+          "cohort_width", "autotune", "entry_points", "serve", "serve_width", "serve_cohort", "lm_train",
           "lm_serve", "ssm_train", "ssm_serve", "hybrid_train",
           "hybrid_serve", "audio_train", "audio_serve", "sharded",
           "fsdp_train", "fsdp_serve")
@@ -300,6 +334,9 @@ SERVE_COHORT_K, SERVE_COHORT_BAD = 128, 16
 # counts.  Qwen3-0.6B's phase also fixes its launches by variant and
 # traces one agent's host operators
 QWEN3_0P6B_PARAMS = 751_894_528
+# the entry_points phase's train_robust_lm: steps of each of its three
+# launch.train processes (the example's default is 300)
+ENTRY_TRAIN_STEPS = 10
 
 
 def _train_args(arch: str, agents: int, *extra: str) -> tuple:
@@ -388,6 +425,15 @@ def qwen3_shapes():
     from repro_torch import pytree
     return pytree.flatten(QWEN3_0P6B_SHAPES,
                           is_leaf=lambda t: isinstance(t, tuple))
+
+
+def autotune_shapes() -> tuple:
+    """(label, K, M, N) the autotune phase sweeps: the full width of
+    Qwen3-0.6B's tree, the service's 128-client cohort over one decoder
+    layer, and the paper's diffusion step."""
+    return (("Qwen3-0.6B tree", WIDTH_AGENTS, QWEN3_0P6B_PARAMS, 1),
+            ("serve_cohort", SERVE_COHORT_K, layer_width(), 1),
+            ("paper diffusion step", 32, 10, 32))
 
 
 def host_info() -> dict:
@@ -553,13 +599,9 @@ class Smoke:
 
     def not_counted(self, fn):
         """Run fn (a comparison launch) without touching the counts."""
-        saved = [dict(c) for c in self._counts()]
-        try:
+        from repro_torch.kernels import mm_aggregate as mk
+        with mk.uncounted():
             return fn()
-        finally:
-            for counts, old in zip(self._counts(), saved):
-                counts.clear()
-                counts.update(old)
 
     def measure(self, key, label, x, a, plan, counts, by_variant,
                 weighted=True, launches=50, chunk=None):
@@ -822,11 +864,22 @@ class Smoke:
                 step_size=paper_lsq.STEP_SIZE, num_steps=500, seed=0,
                 data_seed=0)
 
+        import numpy as np
+        from repro_torch.scenarios import runner
+        runner.clear_executable_cache()
         ref, counts, variants = self.main_path(
             lambda: scenarios.run(spec("mm_tukey", "pallas")))
         steady = ref.summary["steady_msd"]
         assert variants["warp"] == counts["single_pass"] > 0, variants
         assert steady < 1e-2, steady
+        # the runner's executable cache: the same spec again is a hit
+        # whose histories are the miss's, bit for bit
+        hit = self.not_counted(
+            lambda: scenarios.run(spec("mm_tukey", "pallas")))
+        assert not ref.compile_cache_hit and ref.compile_s > 0.0, ref
+        assert hit.compile_cache_hit and hit.compile_s == 0.0
+        assert all(np.array_equal(ref.history[h], hit.history[h])
+                   for h in ref.history), "a cache hit changed the history"
         mean = scenarios.run(spec("mean", "jnp"))
         fed_spec = scenarios.ScenarioSpec(
             paradigm="federated", num_agents=32, participation=0.5,
@@ -864,6 +917,8 @@ class Smoke:
               "ref_launches": counts, "ref_variants": variants,
               "ref_compile_s": ref.compile_s,
               "ref_wall_s": ref.wall_clock_s,
+              "hit_compile_s": hit.compile_s, "hit_wall_s": hit.wall_clock_s,
+              "hit_histories_equal": True,
               "mean_steady_msd": mean.summary["steady_msd"],
               "mean_broke_down": mean.summary["broke_down"],
               "fed_mm_msd_at_50": float(fed.history["msd"][49]),
@@ -898,20 +953,29 @@ class Smoke:
               "max_abs_err": err, "blocks": mk.two_pass_blocks(
                   plan, 512, weighted=False)})
 
-    def width(self):
+    def qwen3_updates(self, seed: int):
+        """WIDTH_AGENTS updates shaped like Qwen3-0.6B's parameter tree,
+        made on the card from ``seed``, the last agent shifted by 1000:
+        (stacked leaves, the tree of them)."""
         torch = self.torch
         from repro_torch import pytree
-        from repro_torch.kernels import mm_aggregate as mk, ops
         leaves_shapes, treedef = qwen3_shapes()
         k = WIDTH_AGENTS
-        g = torch.Generator(device=self.dev).manual_seed(0)
+        g = torch.Generator(device=self.dev).manual_seed(seed)
         leaves = []
         for shape in leaves_shapes:
             leaf = torch.randn((k,) + tuple(shape), generator=g,
                                device=self.dev)
             leaf[k - 1] += 1000.0                # one byzantine agent
             leaves.append(leaf)
-        tree = pytree.unflatten(treedef, leaves)
+        return leaves, pytree.unflatten(treedef, leaves)
+
+    def width(self):
+        torch = self.torch
+        from repro_torch.kernels import mm_aggregate as mk, ops
+        leaves_shapes, _ = qwen3_shapes()
+        k = WIDTH_AGENTS
+        leaves, tree = self.qwen3_updates(0)
         m_total = sum(math.prod(s) for s in leaves_shapes)
         engine = ops.AggregationEngine()
         torch.cuda.reset_peak_memory_stats()
@@ -1088,6 +1152,301 @@ class Smoke:
               "block_k": plan.block_k, "smem_bytes": plan.smem_bytes,
               "blocks": mk.two_pass_blocks(plan, k, weighted=False),
               "max_memory_allocated": peak})
+
+    # -- the autotuner and the entry points --------------------------------
+
+    def autotune(self):
+        """tuning.autotune at AUTOTUNE_SHAPES with the winners persisted to
+        a file of a temporary directory; the gates (a)-(d) of the module
+        docstring; then the cache emptied and the file forgotten."""
+        import os
+        import tempfile
+        torch = self.torch
+        from repro_torch.kernels import mm_aggregate as mk, ops, tuning
+        torch.cuda.empty_cache()
+        tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tuning_")
+        os.environ[tuning.ENV_CACHE_PATH] = os.path.join(tmp.name,
+                                                         "tuning.json")
+        tuning.clear_cache()
+        timed = []
+        real = tuning._time_call_us
+
+        def counted(fn, **kw):
+            timed.append(1)
+            return real(fn, **kw)
+
+        tuning._time_call_us = counted
+        try:
+            winners = {}
+            for label, k, m, n in autotune_shapes():
+                t0 = time.perf_counter()
+                tuning.autotune(k, m, n, device=self.dev)
+                seconds = time.perf_counter() - t0
+                sweep = tuning.sweep_times(k, m, n, device=self.dev)
+                assert [c for c, _ in sweep] == \
+                    tuning.candidate_choices(k, m, n), sweep
+                win = tuning.get_choice(k, m, n)
+                ms = {c: us * 1e-3 for c, us in sweep}
+                heur = tuning.heuristic_choice(k, m, n)
+                emit({"phase": "autotune", "shape": label, "k": k, "m": m,
+                      "n": n, "seconds": seconds,
+                      "candidates": [dict(c._asdict(), variant=mk.launch_plan(
+                          k, m, n, block_m=c.block_m, block_k=c.block_k,
+                          path=c.path).variant or "two_pass", ms=t)
+                          for c, t in ms.items()],
+                      "winner": win._asdict(), "winner_ms": ms[win],
+                      "heuristic": heur._asdict(), "heuristic_ms": ms[heur],
+                      "winner_is_heuristic": win == heur})
+                winners[(k, m, n)] = win
+            # (a) a fresh process with this environment reads them back
+            code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+                    "from repro_torch.kernels import tuning; "
+                    "print(json.dumps([list(tuning.get_choice(*s)) "
+                    "for s in json.loads(sys.argv[2])]))")
+            proc = subprocess.run(
+                [sys.executable, "-c", code, str(HERE / "src"),
+                 json.dumps([list(s) for s in winners])],
+                capture_output=True, text=True, check=True,
+                env=dict(os.environ))
+            read = [tuning.TuneChoice(*c) for c in
+                    json.loads(proc.stdout.strip().splitlines()[-1])]
+            assert read == list(winners.values()), (read, winners)
+            # (d) a second autotune without force times nothing
+            n_timed = len(timed)
+            for k, m, n in winners:
+                tuning.autotune(k, m, n, device=self.dev)
+            assert len(timed) == n_timed, "a cached workload was timed again"
+            # (b), (c) the engine launches each winner
+            engine = ops.AggregationEngine(autotune=True)
+            (tree, cohort, _) = autotune_shapes()
+            tree_row = self._autotuned_tree(engine, winners[tree[1:]])
+            cohort_row = self._autotuned_cohort(engine, winners[cohort[1:]])
+            emit({"phase": "autotune", "fresh_process_read": True,
+                  "second_call_timed": len(timed) - n_timed,
+                  "timed_calls": n_timed, "engine": [tree_row, cohort_row]})
+        finally:
+            tuning._time_call_us = real
+            tuning.clear_cache()
+            os.environ.pop(tuning.ENV_CACHE_PATH, None)
+            tmp.cleanup()
+
+    def _engine_launch(self, win, k, m, fn, stage, key, label, chunk,
+                       launches):
+        """Run ``fn`` (the autotuning engine over a (k, m) workload, which
+        returns the (m,) estimate) as a main path.  Gates: its one launch
+        took the winner's plan (the workload record, the counts by shape);
+        the wrapper's launch of that plan on the buffer the engine read
+        (``stage()``) gives the same bits; the plain version of the plan
+        agrees over every column (``measure``).  Returns a row."""
+        torch = self.torch
+        from repro_torch.kernels import mm_aggregate as mk, ops
+        plan = mk.launch_plan(k, m, 1, block_m=win.block_m,
+                              block_k=win.block_k, path=win.path)
+        with ops.record_workloads() as rec:
+            est, counts, variants = self.main_path(fn)
+        assert [(r["block_m"], r["block_k"], r["path"]) for r in rec] == \
+            [(plan.block_m, plan.block_k, plan.path)], (rec, plan)
+        assert self.by_shape == {(plan.variant or "two_pass", k, m, 1): 1}, \
+            self.by_shape
+        x = stage()
+        torch.cuda.empty_cache()
+        uniform = torch.full((k, 1), 1.0 / k, device=self.dev)
+        run = mk.two_pass if plan.path == "two_pass" else mk.single_pass
+        got = self.not_counted(lambda: run(x, uniform, plan, weighted=False))
+        assert torch.equal(got[0], est), "the engine and the wrapper disagree"
+        del got, est
+        name = "mm_two_pass" if plan.path == "two_pass" else "mm_single_pass"
+        entry = self.measure(
+            f"{name} (autotuned, {key})",
+            f"K={k} M={m} N=1 f32 ({label}, autotune winner)", x, uniform,
+            plan, counts, variants, weighted=False, launches=launches,
+            chunk=chunk)
+        return {"shape": key, "variant": plan.variant or "two_pass",
+                "block_m": plan.block_m, "block_k": plan.block_k,
+                "launches": counts, "ms": entry["ms"],
+                "max_abs_err_all_columns": entry["max_abs_err"],
+                "bound_ms": entry["bound_ms"]}
+
+    def _autotuned_tree(self, engine, win):
+        torch = self.torch
+        from repro_torch import pytree
+        from repro_torch.kernels import ops
+        # the updates live only here: staging them for the checks frees
+        # them, so the card never holds the tree and two copies of x
+        held = dict(zip(("leaves", "tree"), self.qwen3_updates(8)))
+
+        def run():
+            out = engine.aggregate_tree(held["tree"])
+            return torch.cat([leaf.reshape(-1)
+                              for leaf in pytree.flatten(out)[0]])
+
+        def stage():
+            buf = ops.stage_leaves(held.pop("leaves"))
+            held.clear()
+            return buf
+
+        return self._engine_launch(
+            win, WIDTH_AGENTS, QWEN3_0P6B_PARAMS, run, stage,
+            "Qwen3-0.6B tree", "aggregate_tree", 2 ** 24, 50)
+
+    def _autotuned_cohort(self, engine, win):
+        torch = self.torch
+        k, m = SERVE_COHORT_K, layer_width()
+        g = torch.Generator(device=self.dev).manual_seed(9)
+        x = torch.randn((k, m), generator=g, device=self.dev)
+        x[k - SERVE_COHORT_BAD:] += 1000.0
+        return self._engine_launch(
+            win, k, m, lambda: engine.aggregate(x), lambda: x,
+            "128-client cohort layer", "aggregate", 2 ** 20, 10)
+
+    def _example(self, name, argv):
+        """``python -m repro_torch.examples.<name> <argv>``'s main, in this
+        process as a main path: (exit code, its standard output, launches,
+        launches by (variant, K, M, N), seconds)."""
+        import contextlib
+        import importlib
+        import io
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, counts, _ = self.main_path(lambda: module.main(argv))
+        return rc, out.getvalue(), counts, dict(self.by_shape), \
+            time.perf_counter() - t0
+
+    def measure_launched(self, label, by_shape, weighted):
+        """A kernels-line entry for each (variant, K, M, N) a main path
+        launched, with its launches there: the kernel at that shape on
+        seeded inputs (the last K // 8 rows shifted by 1000; weighted
+        where ``weighted`` or N > 1), timed and held to its plain version
+        as ``measure`` does."""
+        torch = self.torch
+        from repro_torch.core import location
+        from repro_torch.kernels import mm_aggregate as mk
+        for (variant, k, m, n), launches in sorted(by_shape.items()):
+            g = torch.Generator(device=self.dev).manual_seed(k * 7919 + m + n)
+            x = torch.randn((k, m), generator=g, device=self.dev)
+            x[k - max(1, k // 8):] += 1000.0
+            w = weighted or n > 1
+            a = location.normalize_weights(torch.rand(
+                (k, n), generator=g, device=self.dev) + 0.1) if w \
+                else torch.full((k, 1), 1.0 / k, device=self.dev)
+            two = variant == "two_pass"
+            plan = mk.launch_plan(k, m, n, path="two_pass" if two else
+                                  "single", variant=None if two else variant)
+            counts = {"single_pass": 0 if two else launches,
+                      "two_pass": launches if two else 0}
+            by_variant = dict.fromkeys(mk.SINGLE_PASS_VARIANTS, 0)
+            if not two:
+                by_variant[variant] = launches
+            name = "mm_two_pass" if two else "mm_single_pass"
+            self.measure(f"{name} ({label}, {variant} K={k} M={m} N={n})",
+                         f"K={k} M={m} N={n} f32 ({label})", x, a, plan,
+                         counts, by_variant, weighted=w)
+
+    def entry_points(self):
+        """The port's examples (repro_torch.examples), each with the gates
+        of the module docstring; the sweep's rows go to a temporary
+        directory."""
+        import tempfile
+        self.torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+            self._entry_points(tmp)
+
+    def _entry_points(self, tmp):
+        import os
+        cuda = ["--device", str(self.dev)]
+
+        def table(out, names):
+            rows = {}
+            for line in out.splitlines():
+                for name in names:
+                    if line.startswith(name + " "):
+                        rows[name] = [float(v)
+                                      for v in line[len(name):].split()]
+            return rows
+
+        def report(name, rc, out, counts, by_shape, seconds, **extra):
+            emit(dict({"phase": "entry_points", "example": name, "rc": rc,
+                       "seconds": seconds, "launches": counts,
+                       "by_shape": [list(k) + [v] for k, v in
+                                    sorted(by_shape.items())]}, **extra))
+            assert rc == 0, (name, rc, out[-2000:])
+
+        # quickstart and federated, as the reference sizes them
+        rc, out, counts, by_shape, sec = self._example("quickstart", cuda)
+        rows = table(out, ("mean (clean)", "mean (1 attacker)",
+                           "REF  (1 attacker)"))
+        report("quickstart", rc, out, counts, by_shape, sec, rows=rows)
+        assert rows["REF  (1 attacker)"][2] < 1e-2, rows
+        assert rows["mean (1 attacker)"][2] > 1.0, rows
+        from repro_torch.examples import federated
+        rc, out, counts, by_shape, sec = self._example("federated", cuda)
+        rows = table(out, tuple(federated.SETTINGS))
+        report("federated", rc, out, counts, by_shape, sec, rows=rows)
+        assert rows["Robust-FedAvg MM (6/32 malicious)"][1] < 1e-2, rows
+        assert rows["FedAvg (6/32 malicious)"][1] > 1.0, rows
+        # the sweep's CI preset and the large cohort, on the kernels
+        for family in (None, "large_cohort"):
+            path = os.path.join(tmp, f"sweep_{family or 'preset'}.json")
+            argv = ["--smoke", "--json", path] + cuda + (
+                ["--family", family] if family else [])
+            rc, out, counts, by_shape, sec = self._example("scenario_sweep",
+                                                           argv)
+            with open(path) as f:
+                sweep = json.load(f)["rows"]
+            label = f"scenario_sweep {family or 'preset'}"
+            report(label, rc, out, counts, by_shape, sec, rows=[
+                {k: r[k] for k in ("name", "steady_msd", "final_msd",
+                                   "compile_s", "wall_clock_s", "finite")}
+                | {"path": r["launch_audit"]["path"],
+                   "variant": r["launch_audit"]["variant"]}
+                for r in sweep])
+            assert all(r["finite"] and r["device"] == str(self.dev)
+                       for r in sweep), sweep
+            assert all(r["launch_audit"] for r in sweep
+                       if r["backend"] == "pallas"), sweep
+            if family:
+                assert counts["two_pass"] > 0, counts
+                assert sweep[0]["num_agents"] == 1024 and \
+                    sweep[0]["launch_audit"]["path"] == "two_pass", sweep[0]
+            else:
+                assert counts["single_pass"] > 0, counts
+            self.measure_launched(label, by_shape, weighted=False)
+        # the service on the kernel, clean and under every fault
+        for profile in ("clean", "mixed"):
+            rc, out, counts, by_shape, sec = self._example(
+                "serve_agg", ["--backend", "pallas", "--profile", profile]
+                + cuda)
+            report(f"serve_agg {profile}", rc, out, counts, by_shape, sec,
+                   lines=out.splitlines()[:4])
+            assert counts["single_pass"] > 0, counts
+            self.measure_launched(f"serve_agg {profile}", by_shape,
+                                  weighted=True)
+        for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
+            rc, out, counts, by_shape, sec = self._example(
+                "serve_lm", ["--arch", arch] + cuda)
+            report(f"serve_lm {arch}", rc, out, counts, by_shape, sec,
+                   lines=out.splitlines()[:2])
+            assert out.rstrip().endswith("OK"), out[-500:]
+        # three launch.train processes of 8 agents each, the kernel in
+        # REF's aggregation (their launches are counted in those
+        # processes, not here)
+        rc, out, counts, by_shape, sec = self._example(
+            "train_robust_lm", ["--steps", str(ENTRY_TRAIN_STEPS)] + cuda)
+        losses, run = {}, None
+        for line in out.splitlines():
+            if line.startswith("=== aggregation="):
+                run = ("mean clean", "mean attacked",
+                       "REF attacked")[len(losses)]
+                losses[run] = []
+            elif line.startswith("step ") and run:
+                losses[run].append(float(line.split()[3]))
+        report("train_robust_lm", rc, out, counts, by_shape, sec,
+               losses=losses)
+        assert all(math.isfinite(v) for v in losses["REF attacked"]), losses
+        assert losses["REF attacked"][-1] < losses["mean attacked"][-1], \
+            losses
 
     # -- the streaming service ---------------------------------------------
 

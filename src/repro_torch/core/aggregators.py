@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import pytree
 from repro_torch.core import location, mestimators
 
 Aggregator = Callable[..., torch.Tensor]
@@ -149,3 +150,11 @@ def get_aggregator(name: str, **kwargs) -> Aggregator:
     except KeyError:
         raise ValueError(f"unknown aggregator {name!r}; known: {names()}") from None
     return functools.partial(fn, **kwargs) if kwargs else fn
+
+
+def aggregate_pytree(tree, name_or_fn, a: Optional[torch.Tensor] = None,
+                     **kwargs):
+    """Apply an aggregator leaf-wise to a pytree of stacked (K, ...) leaves."""
+    fn = get_aggregator(name_or_fn, **kwargs) if isinstance(name_or_fn, str) \
+        else name_or_fn
+    return pytree.tree_map(lambda leaf: fn(leaf, a), tree)

@@ -18,7 +18,7 @@ ignore weights and need a fully-connected graph.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,3 +77,28 @@ def msd(w: torch.Tensor, w_star: torch.Tensor,
     sq = torch.sum((w - w_star[None]) ** 2, dim=1)
     b = benign_mask.to(w.dtype)
     return torch.sum(sq * b) / torch.sum(b)
+
+
+def run_diffusion(
+    *,
+    grad_fn: GradFn,
+    combination,                   # (K, K) numpy array or tensor
+    config: DiffusionConfig,
+    w_star: torch.Tensor,
+    num_iters: int,
+    generator: torch.Generator,
+    w0: Optional[torch.Tensor] = None,
+    log_every: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the strategy; returns (final W, MSD history (num_iters//log_every,)).
+
+    Thin wrapper over the scenario runner's diffusion loop, with the
+    reference's signature and return shape (a ``generator`` in place of
+    its ``key``); runs on ``w_star``'s device."""
+    from repro_torch.scenarios import runner  # deferred: runner imports this
+    comb = torch.as_tensor(combination, dtype=w_star.dtype,
+                           device=w_star.device)
+    w_final, history = runner.diffusion_loop(
+        grad_fn=grad_fn, combination=comb, config=config, w_star=w_star,
+        num_iters=num_iters, generator=generator, w0=w0)
+    return w_final, history["msd"][::log_every]

@@ -11,7 +11,7 @@ The cohort is a batch axis written out (the reference vmaps over it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -69,3 +69,24 @@ def federated_round(w: torch.Tensor, generator: torch.Generator, *,
         a = torch.as_tensor(config.client_weights, dtype=phis.dtype,
                             device=w.device)[chosen]
     return agg(phis, a)
+
+
+def run_federated(
+    *,
+    grad_fn: ClientGradFn,
+    config: FederatedConfig,
+    w_star: torch.Tensor,
+    num_rounds: int,
+    generator: torch.Generator,
+    w0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final server model, MSD history (num_rounds,)).
+
+    Thin wrapper over the scenario runner's federated loop, with the
+    reference's signature and return shape (a ``generator`` in place of
+    its ``key``)."""
+    from repro_torch.scenarios import runner  # deferred: runner imports this
+    w_final, history = runner.federated_loop(
+        grad_fn=grad_fn, config=config, w_star=w_star,
+        num_rounds=num_rounds, generator=generator, w0=w0)
+    return w_final, history["msd"]

@@ -41,6 +41,7 @@ alone; the plan records it and the launcher never substitutes another.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -498,6 +499,20 @@ def count_launch(plan: LaunchPlan, k: int, m: int, n: int = 1) -> None:
         LAUNCHES_BY_VARIANT[plan.variant] += n
     key = (plan.variant or "two_pass", k, m, plan.n_out)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the scope (a timing sweep, a comparison)
+    leave every launch count as it was."""
+    counts = (LAUNCHES, LAUNCHES_BY_VARIANT, LAUNCHES_BY_SHAPE)
+    saved = [dict(c) for c in counts]
+    try:
+        yield
+    finally:
+        for c, old in zip(counts, saved):
+            c.clear()
+            c.update(old)
 
 
 def _count_launch(plan: LaunchPlan, k: int, m: int) -> None:

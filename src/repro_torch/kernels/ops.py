@@ -27,6 +27,11 @@ captured into a CUDA graph over a static (k, m) cohort buffer and a
 (k,) weight buffer, and every call copies a cohort into them and
 replays the graph -- one capture per geometry, no per-cohort host work
 in the launch.  ``lower_tree`` and leaf donation are not ported yet.
+
+``autotune=True`` runs ``tuning.autotune``'s sweep the first time the
+engine meets a (K, M, N, dtype) on a device (never while a CUDA graph
+is being captured), so the plan each launch takes, and records, is the
+measured winner's.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from repro_torch import devices, pytree
 from repro_torch.core import location, mestimators
 from repro_torch.kernels import mm_aggregate as _k
+from repro_torch.kernels import tuning
 
 BACKENDS = ("pallas", "jnp")
 
@@ -72,9 +78,11 @@ class AggregationEngine:
 
     ``block_m``/``block_k``/``path`` of None resolve per launch through
     ``mm_aggregate.launch_plan`` (the tuning cache or its heuristic, and
-    ``auto_path``).  The engine runs on whatever device its inputs are
-    on: CUDA tensors launch the kernels, CPU tensors take their plain
-    versions.
+    ``auto_path``); ``autotune=True`` first times the candidates of a
+    workload the engine has not met (outside CUDA-graph capture, where
+    the cache or heuristic decides).  The engine runs on whatever device
+    its inputs are on: CUDA tensors launch the kernels, CPU tensors take
+    their plain versions.
     """
 
     def __init__(self, *, num_iters: int = 10,
@@ -82,6 +90,7 @@ class AggregationEngine:
                  block_m: Optional[int] = None,
                  block_k: Optional[int] = None,
                  backend: str = "pallas",
+                 autotune: bool = False,
                  path: Optional[str] = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
@@ -92,6 +101,7 @@ class AggregationEngine:
         self.block_m = block_m
         self.block_k = block_k
         self.backend = backend
+        self.autotune = autotune
         self.path = path
 
     def _plan(self, k: int, m: int, n: int = 1, dtype=torch.float32):
@@ -103,6 +113,14 @@ class AggregationEngine:
                               block_k=self.block_k, path=self.path)
 
     def _record(self, x: torch.Tensor, k: int, m: int, n: int = 1) -> None:
+        """Tune the workload where asked (before its plan is resolved),
+        then record the plan its launch takes."""
+        if self.autotune and self.backend == "pallas" \
+                and self.block_m is None and not (
+                    x.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+            tuning.autotune(k, m, n, x.dtype, num_iters=self.num_iters,
+                            device=x.device)
         entry = {"k": int(k), "m": int(m), "n": int(n),
                  "dtype": _k.dtype_name(x.dtype), "backend": self.backend}
         plan = self._plan(k, m, n, x.dtype)

@@ -13,8 +13,8 @@ of every kernel on the CPU.
 ``--scenario`` drives the same run through the scenario subsystem
 instead of the local loop: the arguments are lowered to a
 ``ScenarioSpec(paradigm="substrate", ...)`` and executed by
-``scenarios.run``, with the first step (the kernels' build and first
-launch) and the steady run timed apart.
+``scenarios.run``, with the lowering and one warm-up step (the kernels'
+build and first launch) and the steady run timed apart.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def run_scenario(args) -> list:
     for i in range(0, args.steps, max(1, args.log_every)):
         print(f"step {i:5d} loss {losses[i]:.4f} "
               f"consensus {float(res.history['consensus'][i]):.3f}")
-    print(f"# first step {res.compile_s:.2f}s  steady wall "
+    print(f"# compile {res.compile_s:.2f}s  steady wall "
           f"{res.wall_clock_s:.2f}s  broke_down={res.summary['broke_down']}")
     if res.launch_audit:
         n = res.launch_audit.get("n_layouts", 1)

@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+
 def msd_single(w: torch.Tensor, w_star: torch.Tensor) -> torch.Tensor:
     """Squared deviation of one shared model (federated)."""
     return torch.sum((w - w_star) ** 2)
@@ -59,3 +60,10 @@ def attack_summary(msd_hist: np.ndarray,
         "breakdown_level": float(breakdown_level),
         "broke_down": (not finite) or s > breakdown_level,
     }
+
+
+def assert_finite(history: Dict[str, np.ndarray], label: str = "") -> None:
+    for name, h in history.items():
+        if not np.isfinite(h).all():
+            raise AssertionError(
+                f"non-finite metric {name!r} in scenario {label or '<run>'}")

@@ -1,7 +1,9 @@
 """Paradigm adapter registry (``repro.scenarios.registry``).
 
-An adapter lowers a ``ScenarioSpec`` to what the runner's loop needs:
+An adapter lowers a ``ScenarioSpec`` to what the runner's loop needs,
+in one of two forms:
 
+    adapter(spec, device) -> (state0, step_fn)                 # legacy tuple
     adapter(spec, device) -> Lowering(state0, step_fn, ...)
 
     step_fn(state, generator, step_index) -> (state, {metric: scalar, ...})
@@ -27,6 +29,14 @@ class Lowering:
     step_fn: Callable                        # (state, gen, i) -> (state, metrics)
     finalize: Optional[Callable] = None      # history dict -> history dict
     breakdown_level: Optional[float] = None  # attack_summary threshold
+
+
+def as_lowering(out) -> Lowering:
+    """Normalize an adapter result (legacy tuple or Lowering)."""
+    if isinstance(out, Lowering):
+        return out
+    state0, step_fn = out
+    return Lowering(state0=state0, step_fn=step_fn)
 
 
 _PARADIGMS: Dict[str, Adapter] = {}

@@ -181,9 +181,11 @@ class ScenarioSpec:
 class ScenarioResult:
     """Uniform result of ``runner.run``.
 
-    ``compile_s`` is the first step, which carries the kernels' build at
-    first use and their first launch; ``wall_clock_s`` is the steady run
-    of the remaining steps, ended by a device synchronize."""
+    ``compile_s`` is what a miss of the runner's executable cache costs:
+    the adapter's lowering and one warm-up step on a copy of the initial
+    state (the kernels' build at first use and their first launch); 0.0
+    on a hit (``compile_cache_hit``).  ``wall_clock_s`` is every step of
+    the run, ended by a device synchronize, on a hit or a miss."""
 
     spec: ScenarioSpec
     history: Dict[str, np.ndarray]     # msd / loss / consensus, (num_steps,)
@@ -192,6 +194,7 @@ class ScenarioResult:
     launch_audit: Optional[dict]       # mm_aggregate.launch_plan (pallas)
     final_state: Any                   # (M,) server model or (K, M) stack
     compile_s: float = 0.0
+    compile_cache_hit: bool = False    # reused the in-process lowering
     device: str = "cpu"
 
     @property
@@ -200,3 +203,37 @@ class ScenarioResult:
 
     def finite(self) -> bool:
         return all(bool(np.isfinite(h).all()) for h in self.history.values())
+
+    def to_row(self) -> dict:
+        """Strict-JSON-able row, the reference's keys plus the device
+        (non-finite metrics become null, not the non-standard Infinity
+        token)."""
+        def num(x):
+            return float(x) if np.isfinite(x) else None
+
+        s = self.spec
+        return {
+            "name": s.label(),
+            "paradigm": s.paradigm,
+            "topology": s.effective_topology(),
+            "aggregator": s.aggregator,
+            "backend": s.backend,
+            "attack": s.attack,
+            "num_malicious": s.num_malicious,
+            "schedule": s.attack_schedule,
+            "data": s.data,
+            "num_agents": s.num_agents,
+            "dim": s.dim,
+            "num_steps": s.num_steps,
+            "seed": s.seed,
+            "wall_clock_s": round(self.wall_clock_s, 4),
+            "compile_s": round(self.compile_s, 4),
+            "compile_cache_hit": self.compile_cache_hit,
+            "model_config": s.model_config or None,
+            "final_msd": num(self.final_msd),
+            "steady_msd": num(self.summary["steady_msd"]),
+            "broke_down": self.summary["broke_down"],
+            "finite": self.finite(),
+            "launch_audit": self.launch_audit,
+            "device": self.device,
+        }
