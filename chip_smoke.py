@@ -9,7 +9,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
   1 build     compile the CUDA kernels from src/repro_torch/kernels/csrc
               (nvcc, sm_90a) and load them; print the card's name and
               power limit as nvidia-smi reports them.
-  2 parity    every kernel against its plain PyTorch version on the card,
+  2 contracts  the port's analysis gate, python -m repro_torch.analysis:
+              the contracts pass, each DEFAULT_WORKLOADS entry's launch
+              plan against the launch the wrappers make (KernelCall) and
+              against what the C entry points report they would launch
+              (mm_single_pass_config / mm_two_pass_config: blocks,
+              threads, dynamic shared memory, the raw blocks an SM
+              holds); the launch pass on the card (MM kernels counted by
+              torch.profiler, the steady calls under
+              torch.cuda.set_sync_debug_mode("error"), bf16 streams, the
+              service's captures).  Each workload's KernelCall is printed
+              beside its C query; any finding not in
+              ANALYSIS_BASELINE_TORCH.json fails the phase.  When the
+              kernels line is printed, every (variant, K, M, N) the main
+              paths launched gets the same comparison.
+  3 parity    every kernel against its plain PyTorch version on the card,
               f32 and bf16 (f32: max |d| <= 1e-5 * max(1, |x|_inf), since
               sums run in another order; bf16: within 1 ulp).  Every
               single-pass variant (regs, warp, smem), forced through the
@@ -28,7 +42,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               the MAD floor and ragged M; blocks of 8, 4, 2 and 1
               columns.  One summary line per kernel, variant and dtype,
               with its first failing cases.
-  3 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
+  4 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
               K=32 fully connected, d=10, 1 attacker at delta=1000) on the
               kernel backend: steady MSD < 1e-2; the mean aggregator as the
               breakdown contrast; the Robust-FedAvg MM setting of
@@ -36,25 +50,25 @@ Phases, each printing one JSON line (any failure exits nonzero):
               The C3 spec runs twice: the second run hits the runner's
               executable cache (compile_s == 0.0) and its histories equal
               the first's bit for bit; both wall_clock_s are printed.
-  4 cohort    the large_cohort family's federated smoke spec (1024 clients
+  5 cohort    the large_cohort family's federated smoke spec (1024 clients
               at participation 0.5: a 512-agent aggregation).  The
               two-pass kernel must launch and the MSD stay finite.
-  5 width     K=8 agents' updates shaped like Qwen3-0.6B's parameter tree
+  6 width     K=8 agents' updates shaped like Qwen3-0.6B's parameter tree
               (14 leaves, 751,894,528 coordinates each), made on the card,
               one agent shifted by 1000, through AggregationEngine
               .aggregate_tree: one launch, checked against the plain
               version over every column, timed with CUDA events.
-  6 batch     one aggregate_batched launch at (K, M, N) = (32, 2^20, 32),
+  7 batch     one aggregate_batched launch at (K, M, N) = (32, 2^20, 32),
               the diffusion case, beside its plain version; then the
               same over 256 fully connected agents, (256, 2^16, 256),
               weighted, which takes the two-pass kernel.
-  7 cohort_width  the large cohort aggregated over the parameters of one
+  8 cohort_width  the large cohort aggregated over the parameters of one
               Qwen3-0.6B decoder layer: K = 512 clients (the last 64
               shifted by 1000), M = 15,730,944, f32, made on the card
               from a seed (32.2 GB), through AggregationEngine.aggregate:
               one two-pass launch, checked against the plain version
               over every column, timed as the other entries.
-  8 autotune  tuning.autotune with REPRO_TORCH_TUNING_CACHE set to a file
+  9 autotune  tuning.autotune with REPRO_TORCH_TUNING_CACHE set to a file
               of a temporary directory, at (8, 751,894,528, 1) (Qwen3-0.6B's
               tree, 24.1 GB of x), (128, 15,730,944, 1) (serve_cohort's
               geometry) and (32, 10, 32) (the paper's diffusion step):
@@ -70,7 +84,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               every column; (d) a second autotune without force times
               nothing.  Then the cache is emptied and the variable unset:
               no later phase launches another geometry than it checks.
-  9 entry_points  the port's examples, in this process through their
+ 10 entry_points  the port's examples, in this process through their
               main (python -m repro_torch.examples.<name>): quickstart and
               federated as the reference sizes them (REF/MM steady MSD <
               1e-2, the attacked mean broke down); scenario_sweep --smoke
@@ -85,7 +99,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               attacked's).  Each distinct (variant, K, M, N) an example
               launched gets a kernels-line entry.
 
- 10 serve     the streaming service (repro_torch.serve) through its
+ 11 serve     the streaming service (repro_torch.serve) through its
               replay harness, as benchmarks/serve_bench.py drives the
               JAX package: the clean, stragglers, network and mixed
               (2 tenants sharing one cache) chaos profiles, 16 agents a
@@ -97,7 +111,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               counts injected faults only.  Then a mixed replay with a
               crash at 0.5 (no duplicate admission) and two runs of one
               mixed replay, whose journals must be identical bytes.
- 11 serve_width  the service at Qwen3-0.6B's full width (M =
+ 12 serve_width  the service at Qwen3-0.6B's full width (M =
               751,894,528, every layer): 8 agents' payloads made on the
               card, agent 7 shifted by 1000, k_min 8, three full
               cohorts.  One capture, three graph replays; agent 7 an
@@ -106,11 +120,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
               the parity tolerance of the plain version over every
               column.  Per commit: submit-to-commit time and the device
               times of staging, replay, outlier check and clip.
- 12 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
+ 13 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
               layer (M = 15,730,944), the last 16 agents shifted by
               1000, two commits: the single-pass smem variant, held to
               its plain version.
- 13 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
+ 14 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
               1024, vocab 151,936 padded to 152,064, 751,894,528 f32
               parameters in 14 leaves, bf16 activations) randomly
               initialised on the card, trained 2 steps by the Mode A step
@@ -130,14 +144,14 @@ Phases, each printing one JSON line (any failure exits nonzero):
               within 1 of the benign agents' mean over
               all 751,894,528 coordinates; loss and grad_norm finite, the
               first loss within 1.5 of ln(151,936).
- 14 lm_serve  make_prefill_step and make_decode_step at the same size:
+ 15 lm_serve  make_prefill_step and make_decode_step at the same size:
               batch 4, a 512-token prompt prefilled (timed), then fed
               through the decode step into the bf16 KV cache, then 32
               greedy tokens (ms per token).  Gate: the decode logits of
               the first 16 positions, and of the last prompt position
               against the prefill's, within 2^-4 x max(1, |logits|_inf)
               of the full-sequence forward's.
- 15 ssm_train   lm_train's step and gates on full-size RWKV6-1.6B (24
+ 16 ssm_train   lm_train's step and gates on full-size RWKV6-1.6B (24
               layers, d_model 2048, d_ff 7168, vocab 65,536;
               1,583,943,680 f32 parameters in 26 leaves): K = 4 agents of
               one 1024-token sequence (16 chunks of 64), agent 3 at
@@ -146,7 +160,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               agent's gradient stack is finite in every leaf every step.
               Each leaf launched once a step, on the variant its launch
               plan picks (the wrappers' counts by shape).
- 16 ssm_serve   lm_serve on RWKV6-1.6B, but 64 prompt tokens through the
+ 17 ssm_serve   lm_serve on RWKV6-1.6B, but 64 prompt tokens through the
               decode step from a zero state (16 held to the forward),
               then 32 greedy tokens.  The same weights also run with f32
               activations: their decode is held to their forward within
@@ -154,18 +168,18 @@ Phases, each printing one JSON line (any failure exits nonzero):
               tolerance is at least twice the bf16 forward's distance
               from the f32 one (random-init RWKV6 at full width
               amplifies bf16 rounding; see LM_SERVE_TOL).
- 17 hybrid_train  the same on Zamba2-2.7B at full width cut to 12 layers
+ 18 hybrid_train  the same on Zamba2-2.7B at full width cut to 12 layers
               (2 groups of 6 Mamba2 layers, the shared attention block
               applied twice; 747,364,160 parameters in 21 leaves), K = 8:
               full depth with K >= 3 would not fit the card.
- 18 hybrid_serve  ssm_serve's run on full-size Zamba2-2.7B (54 layers).
- 19 audio_train  the same on full-size SeamlessM4T-large-v2 (24 encoder +
+ 19 hybrid_serve  ssm_serve's run on full-size Zamba2-2.7B (54 layers).
+ 20 audio_train  the same on full-size SeamlessM4T-large-v2 (24 encoder +
               24 decoder layers; 1,632,233,472 parameters in 25 leaves),
               K = 4, each agent's batch with 1024 stub frame embeddings.
- 20 audio_serve  ssm_serve's run on it, the prompt's frames through the
+ 21 audio_serve  ssm_serve's run on it, the prompt's frames through the
               encoder and the cross cache projected by hand from the
               encoder output (no prefill fills it, as in the reference).
- 21 sharded   the robust collectives (repro_torch.core.sharded) over 4
+ 22 sharded   the robust collectives (repro_torch.core.sharded) over 4
               agent processes sharing the card over gloo
               (launch.mesh.run_ranks, a 2 x 2 (pod, data) mesh): each
               collective checked and timed on CUDA tensors first (the
@@ -180,7 +194,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               same variant; hier_mm equal to its pods' mean.  Per
               collective: host ms, the kernels' CUDA-event ms, the bytes
               each rank sent.
- 22 fsdp_train  Mode B (launch.steps.make_train_step_fsdp) on full-size
+ 23 fsdp_train  Mode B (launch.steps.make_train_step_fsdp) on full-size
               Qwen3-0.6B over the 4 agent processes, each one 1024-token
               sequence, rank 3 additive at +1000, rs_mm on the kernel,
               remat.  Mode A's SGD step (lr 1, no clip) runs first here
@@ -196,12 +210,27 @@ Phases, each printing one JSON line (any failure exits nonzero):
               The replicated leaves' drift across ranks after the Adam
               steps is printed (the reference clips each rank's local
               tree by its own norm).
- 23 fsdp_serve  make_prefill_step / make_decode_step with fsdp=True on
+ 24 fsdp_serve  make_prefill_step / make_decode_step with fsdp=True on
               the same model sharded over the 4 processes, one row each:
               a 512-token prefill (timed) and decode logits teacher-
               forced on Mode A's greedy tokens (FSDP_SERVE_CHECKED
               positions), within 2^-4 x max(1, |logits|_inf) of Mode A's
               unsharded steps; then 32 greedy tokens (ms per token).
+ 25 dryrun    repro_torch.launch.dryrun on meta tensors: the pairs of the
+              arch x shape matrix in DRYRUN_PAIRS on 16 agent ranks (the
+              others named on a line first), each pair's counts printed;
+              then a full-size Qwen3-0.6B Mode A step (K = 8 agents of one
+              1024-token sequence, as lm_train) run on the card and traced
+              on meta: the MM launches by (variant, K, M, N) (14), the
+              FlopCounterMode flops and the argument bytes (the caching
+              allocator's requested bytes, and torch.cuda.memory_allocated
+              against the meta bytes rounded to its 512-byte blocks)
+              must be equal; and Mode B at
+              fsdp_train's shape on a 4-rank group that moves nothing,
+              whose bytes sent by kind must equal every rank's in every
+              step of fsdp_train.  The predicted peak (arguments + saved
+              for backward, and the live peak) beside the measured
+              max_memory_allocated, not gated.
 
 The service's launches are CUDA-graph replays: the kernel wrappers
 count the warm-up launch before each capture, and each replay adds its
@@ -248,11 +277,11 @@ import time
 HERE = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-PHASES = ("build", "parity", "paper", "cohort", "width", "batch",
-          "cohort_width", "autotune", "entry_points", "serve", "serve_width", "serve_cohort", "lm_train",
-          "lm_serve", "ssm_train", "ssm_serve", "hybrid_train",
-          "hybrid_serve", "audio_train", "audio_serve", "sharded",
-          "fsdp_train", "fsdp_serve")
+PHASES = ("build", "contracts", "parity", "paper", "cohort", "width",
+          "batch", "cohort_width", "autotune", "entry_points", "serve",
+          "serve_width", "serve_cohort", "lm_train", "lm_serve", "ssm_train",
+          "ssm_serve", "hybrid_train", "hybrid_serve", "audio_train",
+          "audio_serve", "sharded", "fsdp_train", "fsdp_serve", "dryrun")
 # torch.profiler windows traced for one kernels-line entry before its
 # device time is reported as missing (Smoke.profiler_ms)
 PROFILER_WINDOWS = 12
@@ -337,6 +366,23 @@ QWEN3_0P6B_PARAMS = 751_894_528
 # the entry_points phase's train_robust_lm: steps of each of its three
 # launch.train processes (the example's default is 300)
 ENTRY_TRAIN_STEPS = 10
+
+
+# the dry run's pairs traced on the card's host (of 10 archs x 4 shapes):
+# every arch at both decode shapes and Qwen3-0.6B at every shape.  A
+# train_4k or prefill_32k trace of the other archs takes 20 s to an hour
+# of one core here (PERF.md section 6, the dry-run table, by
+# python -m repro_torch.launch.dryrun on the CPU), past the run's limit
+DRYRUN_PAIRS = tuple(
+    [(a, s) for a in ("seamless_m4t_large_v2", "zamba2_2p7b",
+                      "qwen1p5_110b", "rwkv6_1p6b", "qwen3_0p6b",
+                      "qwen3_32b", "qwen3_moe_235b_a22b", "dbrx_132b",
+                      "stablelm_3b", "llava_next_34b")
+     for s in ("decode_32k", "long_500k")]
+    + [("qwen3_0p6b", "train_4k"), ("qwen3_0p6b", "prefill_32k")])
+DRYRUN_LEFT_OUT_WHY = ("the other archs' train_4k and prefill_32k traces "
+                       "take 20 s to an hour of one core (PERF.md, the "
+                       "dry-run table)")
 
 
 def _train_args(arch: str, agents: int, *extra: str) -> tuple:
@@ -464,20 +510,10 @@ def nvidia_smi() -> str:
 
 def mm_ops(k: int, m: int, n: int, weighted: bool, num_iters: int = 10,
            sort_rows: int = 0) -> int:
-    """f32 operations the MM estimate needs, an FMA counted as two (as the
-    peak rate counts it).  Per (column, n) and IRLS step, each row takes
-    9: r = x - mu, r * r, 1 - r^2 / (c scale)^2 as one FMA against the
-    folded constant, the clamp at 0, the square, num += w x as an FMA,
-    den += w; weights add one multiply.  Each step adds the divide and
-    the test, and the folded constant costs 3 once.  The start takes 2
-    per row for the deviations and compares of the MAD and, weighted, 2
-    for the cumulative weight and its compare.  Sorting a column costs
-    K log2 K compares (log2 of the sorted block, ``sort_rows``, where
-    the column is sorted in blocks)."""
-    per_row = 9 + int(weighted)
-    start = 2 * k + (2 * k if weighted else 2) + 3
-    sort = k * max(1, math.ceil(math.log2(max(sort_rows or k, 2))))
-    return n * m * (num_iters * (per_row * k + 2) + start) + m * sort
+    """f32 operations the MM estimate needs
+    (``repro_torch.kernels.mm_aggregate.modeled_ops``)."""
+    from repro_torch.kernels.mm_aggregate import modeled_ops
+    return modeled_ops(k, m, n, weighted, num_iters, sort_rows)
 
 
 def ptxas_summary(log: str) -> list:
@@ -514,6 +550,11 @@ class Smoke:
         self.busy_kernels = None   # device_busy_share's last kernel count
         self.busy_top = None       # and its top kernels by device time
         self.by_shape = {}         # main_path's launches by (kernel, K, M, N)
+        # every (variant or "two_pass", K, M, N) a main path launched: the
+        # contracts check holds each one's KernelCall to the C query
+        self.kernel_shapes = set()
+        self.contracts_ran = False
+        self.fsdp_traffic = None   # fsdp_train's bytes sent by rank 0, a step
 
     # -- helpers -----------------------------------------------------------
 
@@ -595,6 +636,7 @@ class Smoke:
         self.torch.cuda.synchronize()
         launches, by_variant, by_shape = self._counts()
         self.by_shape = dict(by_shape)
+        self.kernel_shapes.update(key for key, n in by_shape.items() if n)
         return result, dict(launches), dict(by_variant)
 
     def not_counted(self, fn):
@@ -751,6 +793,57 @@ class Smoke:
               "per_library_s": build.BUILD_SECONDS, "ptxas": ptxas,
               "gpu": self.torch.cuda.get_device_name(0)})
         print(nvidia_smi(), flush=True)
+
+    def contracts(self):
+        """The port's analysis gate on the card (python -m
+        repro_torch.analysis: the contracts pass with the C entry points'
+        queries, the launch pass with torch.profiler's counts and the
+        sync check), then each DEFAULT_WORKLOADS entry's Python
+        KernelCall beside the C query.  The kernels line's shapes get the
+        same comparison when the line is printed (_query_kernel_shapes).
+        Fails on any finding that is not baselined."""
+        import os
+        import shutil
+        import tempfile
+        from repro_torch.analysis import __main__ as gate
+        from repro_torch.analysis import contracts as C
+        from repro_torch.analysis import launch_audit
+        from repro_torch.kernels import mm_aggregate as mk
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+        try:
+            path = os.path.join(tmp, "analysis.json")
+            with mk.uncounted():
+                rc = gate.main(["--root", str(HERE), "--json", path])
+            with open(path) as f:
+                report = json.load(f)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        assert rc == 0 and not report["unbaselined"] and \
+            not report["stale_baseline_keys"], report
+        assert launch_audit.unchecked() == []
+        rows = [C.describe(*wl, on_card=True) for wl in C.DEFAULT_WORKLOADS]
+        for row in rows:
+            emit(dict(row, phase="contracts"))
+        assert all(row["equal"] for row in rows), rows
+        emit({"phase": "contracts", "gate_rc": rc,
+              "timings_s": report["timings_s"],
+              "baselined": len(report["baselined"]), "unbaselined": 0,
+              "workloads": len(rows), "sms": rows[0]["c"]["sms"]})
+        self.contracts_ran = True
+
+    def _query_kernel_shapes(self) -> None:
+        """Every (variant, K, M, N) the main paths launched: the Python
+        KernelCall of its plan beside the C query (f32, weighted, as the
+        kernels line times most of them)."""
+        from repro_torch.analysis import contracts as C
+        rows = []
+        for variant, k, m, n in sorted(self.kernel_shapes):
+            two = variant == "two_pass"
+            row = C.describe(k, m, n, path="two_pass" if two else "single",
+                             variant=None if two else variant, on_card=True)
+            rows.append(row)
+            emit(dict(row, phase="contracts_kernels"))
+        assert all(row["equal"] for row in rows), rows
 
     def _parity_case(self, k, m, n, dtype, weighted, path, block_k=None,
                      variant=None, kind="contaminated"):
@@ -2141,6 +2234,7 @@ class Smoke:
             key = str((row["variant"], row["k"], row["m"], 1))
             launches = sum(rk["by_shape"].get(key, 0) for rk in ranks)
             assert launches > 0, (phase, key)
+            self.kernel_shapes.add((row["variant"], row["k"], row["m"], 1))
             assert row["max_abs_err"] <= row["tol"], (phase, row)
             name = f"mm_single_pass ({label}: K={row['k']} M={row['m']})"
             self.kernels[name] = dict(
@@ -2293,6 +2387,8 @@ class Smoke:
                 assert g["max_dev_from_benign_mean"] < 1.0, g         # (b)
                 assert g["min_mean_shift"] >= 0.9 * DIST_DELTA / DIST_K, g
         self._dist_entries("fsdp_train", "Qwen3-0.6B Mode B step", ranks)
+        self.fsdp_traffic = [row["traffic"] for rk in ranks
+                             for row in rk["rows"]]
         emit(dict({"phase": "fsdp_train", "arch": cfg.name, "ranks": DIST_K,
                    "seq_len": 1024, "steps": 1 + FSDP_TRAIN_STEPS,
                    "launches_per_step_per_rank": per_step,
@@ -2372,7 +2468,150 @@ class Smoke:
             assert max(rk["decode_vs_mode_a_max_err"]) <= rk["tol"], rk
             assert all(t < rk["vocab"] for t in rk["generated_head"]), rk
 
+    def dryrun(self):
+        """The dry run (repro_torch.launch.dryrun) on the card's host: the
+        matrix's DRYRUN_PAIRS traced on meta tensors (the pairs left out
+        named on a line first), then held to the card: a full-size
+        Qwen3-0.6B Mode A step (K = 8 agents of one 1024-token sequence,
+        as lm_train) run on the card and traced on meta, whose MM
+        launches by (variant, K, M, N), flops and argument bytes (the
+        allocator's requested bytes; memory_allocated against the bytes
+        rounded to its 512-byte blocks) must be equal; and Mode B at fsdp_train's shape on a 4-rank group that
+        moves nothing, whose bytes sent by kind must equal what each rank
+        of fsdp_train sent in each step.  The predicted peak memory is
+        printed beside the measured one (reported, not gated)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.configs.base import InputShape
+        from repro_torch.kernels import mm_aggregate as mk
+        from repro_torch.launch import dryrun as D
+        from repro_torch.optim import optimizers
+        left = [p for p in D.pairs() if p not in DRYRUN_PAIRS]
+        emit({"phase": "dryrun_left_out", "pairs": left,
+              "why": DRYRUN_LEFT_OUT_WHY})
+        t0 = time.perf_counter()
+        for arch, shape in DRYRUN_PAIRS:
+            rec = D.trace_pair(arch, shape)
+            mem = rec["memory"]
+            emit({"phase": "dryrun_pair", "arch": arch, "shape": shape,
+                  "mode": rec["mode"], "trace_s": rec["trace_s"],
+                  "params": rec["params"], "param_numel": rec["param_numel"],
+                  "argument_bytes": mem["argument_bytes"],
+                  "saved_for_backward_bytes":
+                      mem["saved_for_backward_bytes"],
+                  "live_peak_bytes": mem["live_peak_bytes"],
+                  "flops_per_rank": rec["flops_per_rank"],
+                  "bytes_accessed_per_rank": rec["bytes_accessed_per_rank"],
+                  "sent_bytes": sum(c["bytes"]
+                                    for c in rec["collectives"].values()),
+                  "mm_launches": rec["mm_launch_count"],
+                  "fits_80gb": rec["fits_80gb"]})
+        matrix_s = time.perf_counter() - t0
+
+        # Qwen3-0.6B Mode A: the card's step against its meta trace
+        cfg = configs.load_arch("qwen3-0.6b").model
+        par = dataclasses.replace(
+            configs.load_arch("qwen3-0.6b").parallel_for("train_4k"),
+            use_kernel=True)
+        shape = InputShape("lm_train", "train", 1024, 1)
+        meta = D.trace_step(cfg, par, shape, ranks=1, agents=WIDTH_AGENTS)
+        opt_cfg = optimizers.OptimizerConfig(state_dtype=par.opt_state_dtype)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        stats0 = torch.cuda.memory_stats()
+        _, fn, args = D.step_and_arguments(cfg, par, opt_cfg, shape, 1, None,
+                                           device="cuda",
+                                           agents=WIDTH_AGENTS)
+        torch.cuda.synchronize()
+        stats1 = torch.cuda.memory_stats()
+        requested = stats1["requested_bytes.all.current"] - \
+            stats0["requested_bytes.all.current"]
+        allocated = stats1["allocated_bytes.all.current"] - \
+            stats0["allocated_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        base_peak = stats1["allocated_bytes.all.current"]
+        with mk.uncounted():
+            for counts in self._counts():
+                counts.update(dict.fromkeys(counts, 0))
+            self._counts()[2].clear()
+            t1 = time.perf_counter()
+            card = D.trace(fn, args)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t1
+            launched = {k: n for k, n in mk.LAUNCHES_BY_SHAPE.items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        del fn, args
+        torch.cuda.empty_cache()
+
+        def by_key(rec):
+            out: dict = {}
+            for d in rec["mm_launches"]:
+                key = tuple(d["key"])
+                out[key] = out.get(key, 0) + d["count"]
+            return out
+
+        gates = {
+            "mm_launches": (by_key(meta), launched),
+            "mm_calls": (by_key(meta), by_key(card)),
+            "flops": (meta["flops_per_rank"], card["flops_per_rank"]),
+            "argument_bytes": (meta["memory"]["argument_bytes"], requested),
+            # each block rounded to the allocator's 512-byte granule, as
+            # torch.cuda.memory_allocated counts them
+            "argument_alloc_bytes": (meta["memory"]["argument_alloc_bytes"],
+                                     allocated),
+        }
+        mem = meta["memory"]
+        emit({"phase": "dryrun_qwen3_mode_a", "agents": WIDTH_AGENTS,
+              "seq_len": 1024, "meta_trace_s": meta["trace_s"],
+              "card_step_s": card_s,
+              "mm_launches": {str(k): v for k, v in launched.items()},
+              "mm_launch_total": sum(launched.values()),
+              "flops_meta": meta["flops_per_rank"],
+              "flops_card": card["flops_per_rank"],
+              "argument_bytes_meta": mem["argument_bytes"],
+              "argument_requested_card": requested,
+              "argument_alloc_bytes_meta": mem["argument_alloc_bytes"],
+              "memory_allocated_card": allocated,
+              "saved_for_backward_bytes": mem["saved_for_backward_bytes"],
+              "predicted_peak_bytes": mem["predicted_peak_bytes"],
+              "live_peak_bytes": mem["live_peak_bytes"],
+              "max_memory_allocated": peak,
+              "step_peak_over_arguments": peak - base_peak,
+              "predicted_over_measured":
+                  mem["predicted_peak_bytes"] / peak,
+              "live_peak_over_measured": mem["live_peak_bytes"] / peak,
+              "bytes_accessed_meta": meta["bytes_accessed_per_rank"],
+              "bytes_accessed_card": card["bytes_accessed_per_rank"],
+              "equal": {k: a == b for k, (a, b) in gates.items()}})
+        for name, (want, got) in gates.items():
+            assert want == got, (name, want, got)
+        assert sum(launched.values()) == 14, launched
+
+        # Mode B at fsdp_train's shape: bytes sent by kind, every rank and
+        # step of fsdp_train's run
+        assert self.fsdp_traffic, "the Mode B gate needs the fsdp_train phase"
+        par_b = configs.ParallelConfig(fsdp=True, aggregation="rs_mm",
+                                       use_kernel=True, remat=True,
+                                       microbatches=1)
+        rec_b = D.trace_step(cfg, par_b,
+                             InputShape("fsdp_train", "train", 1024, DIST_K),
+                             ranks=DIST_K)
+        sent = {k: c["bytes"] for k, c in rec_b["collectives"].items()}
+        emit({"phase": "dryrun_mode_b", "ranks": DIST_K,
+              "meta_trace_s": rec_b["trace_s"], "sent_meta": sent,
+              "sent_total_meta": sum(sent.values()),
+              "collectives_meta": rec_b["collectives"],
+              "sent_card_rank_steps": self.fsdp_traffic,
+              "mm_launches_meta": rec_b["mm_launch_count"]})
+        for t in self.fsdp_traffic:
+            assert {k: n for k, n in t.items() if n} == sent, (t, sent)
+        emit({"phase": "dryrun", "pairs": len(DRYRUN_PAIRS),
+              "left_out": len(left), "matrix_s": matrix_s,
+              "qwen3_mode_a_gates": list(gates), "mode_b_gate": "sent_bytes"})
+
     def kernels_line(self) -> None:
+        if self.contracts_ran:
+            self._query_kernel_shapes()
         rows = []
         for entry in self.kernels.values():
             kernel = "two_pass" if "two_pass" in entry["name"] else "single_pass"
@@ -2627,6 +2866,7 @@ def _fsdp_train_rank(mesh, ref_path, tokens):
 
     def one(step, opt, label):
         before = [dict(c) for c in smoke._counts()]
+        sent0 = dict(sharded.TRAFFIC)
         dist.barrier()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2644,6 +2884,10 @@ def _fsdp_train_rank(mesh, ref_path, tokens):
                      "by_shape": {str(key): n for key, n in by_shape.items()
                                   if n},
                      "sent_bytes": step.traffic,
+                     # every collective of the step, by kind (the
+                     # dryrun phase holds its meta trace to these)
+                     "traffic": {kind: n - sent0[kind] for kind, n
+                                 in sharded.TRAFFIC.items()},
                      "max_memory_allocated":
                          torch.cuda.max_memory_allocated()})
         return opt

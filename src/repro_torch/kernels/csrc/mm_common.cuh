@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace mm {
 
@@ -183,6 +184,48 @@ __device__ __forceinline__ void tukey_accumulate(float xv, float a, float mu,
 
 __device__ __forceinline__ float irls_update(float num, float den, float mu) {
   return den > kScaleFloor ? num / den : mu;
+}
+
+// ---- launch queries (host) -------------------------------------------------
+
+// What one launch would run, written by the mm_*_config queries in place
+// of launching it: blocks, threads a block, dynamic shared memory, the
+// blocks of that size one SM holds (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor, as the card reports it: 0 where none fits), the SM
+// count, and the kernel's instantiation (`name`, `name_len` bytes).
+struct LaunchQuery {
+  int64_t blocks, threads, smem, per_sm, sms;
+  char* name;
+  int name_len;
+};
+
+template <typename T> inline const char* type_name();
+template <> inline const char* type_name<float>() { return "float"; }
+template <> inline const char* type_name<__nv_bfloat16>() { return "bf16"; }
+
+// Blocks of `threads` threads and `smem` bytes one SM of the current
+// device holds (0 where none fits), and the device's SM count.
+template <typename Kern>
+cudaError_t occupancy(Kern kern, int threads, size_t smem, int* per_sm,
+                      int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
+                                                        smem);
+  return err;
+}
+
+inline int report(LaunchQuery* q, int64_t blocks, int threads, size_t smem,
+                  int per_sm, int sms) {
+  q->blocks = blocks;
+  q->threads = threads;
+  q->smem = (int64_t)smem;
+  q->per_sm = per_sm;
+  q->sms = sms;
+  return 0;
 }
 
 }  // namespace mm

@@ -466,30 +466,31 @@ struct Args {
   int weighted;
   size_t smem;
   cudaStream_t stream;
+  mm::LaunchQuery* query;  // set: report the launch below, launch nothing
 };
 
-// Blocks of `threads` threads and `smem` bytes that the whole card holds
-// at once: the grid of a grid-stride kernel.  Cached per instantiation
-// for the last (threads, smem) asked.
+// Blocks of `threads` threads and `smem` bytes one SM holds, and the SM
+// count: the grid of a grid-stride kernel is their product.  Cached per
+// instantiation for the last (threads, smem) asked.  per_sm is the
+// card's own answer, 0 where no such block fits an SM: a launch then
+// fails (cudaErrorLaunchOutOfResources) instead of launching a grid of
+// blocks that cannot be resident.
 struct Resident {
   int threads = 0;
   size_t smem = 0;
-  int64_t blocks = 0;
+  int per_sm = 0;
+  int sms = 0;
 };
 
 template <typename Kern>
 cudaError_t resident_blocks(Kern kern, int threads, size_t smem,
                             Resident* cache) {
-  if (cache->threads == threads && cache->smem == smem) return cudaSuccess;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        threads, smem);
+  if (cache->sms && cache->threads == threads && cache->smem == smem)
+    return cudaSuccess;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = mm::occupancy(kern, threads, smem, &per_sm, &sms);
   if (err != cudaSuccess) return err;
-  *cache = Resident{threads, smem, (int64_t)sms * (per_sm > 0 ? per_sm : 1)};
+  *cache = Resident{threads, smem, per_sm, sms};
   return cudaSuccess;
 }
 
@@ -502,7 +503,15 @@ int launch_regs(const Args& g) {
   if (err == cudaSuccess) err = resident_blocks(kern, g.bm, g.smem, &resident);
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = (g.m + g.bm - 1) / g.bm;
-  if (blocks > resident.blocks) blocks = resident.blocks;
+  const int64_t held = (int64_t)resident.sms * resident.per_sm;
+  if (blocks > held) blocks = held;
+  if (g.query) {
+    snprintf(g.query->name, g.query->name_len, "mm_regs<%d, %s>", KMAX,
+             mm::type_name<T>());
+    return mm::report(g.query, blocks, g.bm, g.smem, resident.per_sm,
+                      resident.sms);
+  }
+  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
   kern<<<(unsigned)blocks, g.bm, g.smem, g.stream>>>(
       static_cast<const T*>(g.x), g.ld, g.k, g.m,
       static_cast<const float*>(g.a), g.n, static_cast<T*>(g.out),
@@ -514,6 +523,15 @@ template <int RPL, typename T>
 int launch_warp(const Args& g) {
   const int64_t blocks = (g.m * g.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (g.query) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err =
+        mm::occupancy(mm_warp<RPL, T>, mm::kThreads, 0, &per_sm, &sms);
+    if (err != cudaSuccess) return (int)err;
+    snprintf(g.query->name, g.query->name_len, "mm_warp<%d, %s>", RPL,
+             mm::type_name<T>());
+    return mm::report(g.query, blocks, mm::kThreads, 0, per_sm, sms);
+  }
   mm_warp<RPL, T><<<(unsigned)blocks, mm::kThreads, 0, g.stream>>>(
       static_cast<const T*>(g.x), g.ld, g.k, g.m,
       static_cast<const float*>(g.a), g.n, static_cast<T*>(g.out),
@@ -528,6 +546,14 @@ int launch_smem(const Args& g) {
   cudaError_t err = allow_smem(kern, g.smem, &granted);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (g.m + g.bm - 1) / g.bm;
+  if (g.query) {
+    int per_sm = 0, sms = 0;
+    err = mm::occupancy(kern, mm::kThreads, g.smem, &per_sm, &sms);
+    if (err != cudaSuccess) return (int)err;
+    snprintf(g.query->name, g.query->name_len, "mm_smem<%s>",
+             mm::type_name<T>());
+    return mm::report(g.query, blocks, mm::kThreads, g.smem, per_sm, sms);
+  }
   kern<<<(unsigned)blocks, mm::kThreads, g.smem, g.stream>>>(
       static_cast<const T*>(g.x), g.ld, g.k, g.m,
       static_cast<const float*>(g.a), g.n, static_cast<T*>(g.out), g.bm,
@@ -553,6 +579,30 @@ int launch(int variant, const Args& g) {
   return (int)cudaErrorInvalidValue;
 }
 
+size_t smem_bytes(int variant, int k, int n, int bm) {
+  if (variant == kRegs) return (size_t)k * (n | 1) * sizeof(float);
+  if (variant == kWarp) return 0;
+  return (size_t)k * bm * sizeof(float) + (size_t)k * n * sizeof(float) +
+         (size_t)k * bm * sizeof(uint16_t);
+}
+
+// Checks the arguments and runs (query == nullptr) or reports (query set)
+// one launch.
+int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
+             const void* a, int n, void* out, int bm, int variant,
+             int num_iters, float c, int weighted, void* stream,
+             mm::LaunchQuery* query) {
+  if (k < 1 || k > 65535 || n < 1 || bm < 1 || m < 1 ||
+      (m + bm - 1) / bm > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const Args g{x, ld, k, m, a, n, out, bm, num_iters, c, weighted,
+               smem_bytes(variant, k, n, bm),
+               static_cast<cudaStream_t>(stream), query};
+  if (dtype == 0) return launch<float>(variant, g);
+  if (dtype == 1) return launch<__nv_bfloat16>(variant, g);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -560,10 +610,7 @@ extern "C" {
 // Shared memory one block of `variant` carves; the Python launch plan
 // models the same number (mm_aggregate.variant_smem_bytes).
 size_t mm_single_pass_smem_bytes(int variant, int k, int n, int bm) {
-  if (variant == kRegs) return (size_t)k * (n | 1) * sizeof(float);
-  if (variant == kWarp) return 0;
-  return (size_t)k * bm * sizeof(float) + (size_t)k * n * sizeof(float) +
-         (size_t)k * bm * sizeof(uint16_t);
+  return smem_bytes(variant, k, n, bm);
 }
 
 // x: (k, m) row-major with row stride ld, f32 (dtype 0) or bf16 (dtype 1);
@@ -574,15 +621,29 @@ int mm_single_pass_launch(const void* x, int dtype, int64_t ld, int k,
                           int64_t m, const void* a, int n, void* out, int bm,
                           int variant, int num_iters, float c, int weighted,
                           void* stream) {
-  if (k < 1 || k > 65535 || n < 1 || bm < 1 || m < 1 ||
-      (m + bm - 1) / bm > 2147483647LL)
+  return dispatch(x, dtype, ld, k, m, a, n, out, bm, variant, num_iters, c,
+                  weighted, stream, nullptr);
+}
+
+// What mm_single_pass_launch would launch for these arguments on the
+// current device, through the same dispatch, launching nothing: in
+// out[0..4] the blocks, threads a block, dynamic shared memory, the blocks
+// of that size one SM holds (0 where none fits) and the SM count; in
+// `name` the kernel's instantiation.  Returns a cudaError_t.
+int mm_single_pass_config(int dtype, int k, int64_t m, int n, int bm,
+                          int variant, int64_t* out, char* name,
+                          int name_len) {
+  if (out == nullptr || name == nullptr || name_len < 1)
     return (int)cudaErrorInvalidValue;
-  const Args g{x, ld, k, m, a, n, out, bm, num_iters, c, weighted,
-               mm_single_pass_smem_bytes(variant, k, n, bm),
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch<float>(variant, g);
-  if (dtype == 1) return launch<__nv_bfloat16>(variant, g);
-  return (int)cudaErrorInvalidValue;
+  mm::LaunchQuery q{0, 0, 0, 0, 0, name, name_len};
+  const int err = dispatch(nullptr, dtype, m, k, m, nullptr, n, nullptr, bm,
+                           variant, 0, 1.0f, 1, nullptr, &q);
+  out[0] = q.blocks;
+  out[1] = q.threads;
+  out[2] = q.smem;
+  out[3] = q.per_sm;
+  out[4] = q.sms;
+  return err;
 }
 
 }  // extern "C"

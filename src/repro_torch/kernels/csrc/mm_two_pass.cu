@@ -578,21 +578,22 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
 }
 
 // What one instantiation was last granted and found on one device: the
-// dynamic shared memory it may use, and the blocks of `threads` threads
-// and `smem` bytes the card holds at once.
+// dynamic shared memory it may use, and for blocks of `threads` threads
+// and `smem` bytes how many one SM holds (the card's own answer, 0 where
+// none fits) and the SM count.
 struct Occupancy {
   size_t granted = kDefaultSmem;
   int threads = 0;
   size_t smem = 0;
-  int64_t blocks = 0;
+  int per_sm = 0;
+  int sms = 0;
 };
 
-// Blocks the whole card holds at once for this launch: the grid of the
-// grid-stride walk.  Asked of the current device once per instantiation,
-// device and (threads, smem); both the shared-memory opt-in and the SM
-// count belong to a device.
+// The occupancy of this launch: asked of the current device once per
+// instantiation, device and (threads, smem); both the shared-memory
+// opt-in and the SM count belong to a device.
 template <int RPL, bool WEIGHTED, typename T>
-cudaError_t resident_blocks(int threads, size_t smem, int64_t* blocks) {
+cudaError_t resident_blocks(int threads, size_t smem, Occupancy* found) {
   static Occupancy cached[kMaxDevices];
   auto kern = mm_two_pass<RPL, WEIGHTED, T>;
   int dev = 0;
@@ -600,8 +601,8 @@ cudaError_t resident_blocks(int threads, size_t smem, int64_t* blocks) {
   if (err != cudaSuccess) return err;
   Occupancy uncached;  // a device past the cache asks every launch
   Occupancy* o = dev < kMaxDevices ? &cached[dev] : &uncached;
-  if (o->blocks && o->threads == threads && o->smem == smem) {
-    *blocks = o->blocks;
+  if (o->sms && o->threads == threads && o->smem == smem) {
+    *found = *o;
     return cudaSuccess;
   }
   if (smem > o->granted) {
@@ -610,55 +611,62 @@ cudaError_t resident_blocks(int threads, size_t smem, int64_t* blocks) {
     if (err != cudaSuccess) return err;
     o->granted = smem;
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                        smem);
+  int per_sm = 0, sms = 0;
+  err = mm::occupancy(kern, threads, smem, &per_sm, &sms);
   if (err != cudaSuccess) return err;
   o->threads = threads;
   o->smem = smem;
-  o->blocks = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  *blocks = o->blocks;
+  o->per_sm = per_sm;
+  o->sms = sms;
+  *found = *o;
   return cudaSuccess;
 }
 
-// The blocks a launch uses: min(column tiles, blocks resident at once).
-template <int RPL, bool WEIGHTED, typename T>
-cudaError_t grid_blocks(const Params& p, size_t smem, int64_t* blocks) {
-  cudaError_t err =
-      resident_blocks<RPL, WEIGHTED, T>(32 * p.cols, smem, blocks);
-  if (err != cudaSuccess) return err;
-  const int64_t tiles = (p.m + p.cols - 1) / p.cols;
-  if (tiles < *blocks) *blocks = tiles;
-  return cudaSuccess;
-}
+// Where a launch goes instead of the card: a query of its configuration
+// (mm_two_pass_config) or of its grid alone (mm_two_pass_blocks).
+struct Report {
+  mm::LaunchQuery* query;
+  int64_t* blocks;
+};
 
+// One launch: min(column tiles, blocks the card holds at once) blocks of
+// one warp a column walk the tiles grid-stride.  With no resident block
+// (per_sm 0) it fails rather than launch a grid that cannot run.
 template <int RPL, bool WEIGHTED, typename T>
 int launch(const void* x, const float* a, void* out, const Params& p,
-           size_t smem, cudaStream_t stream, int64_t* blocks_out) {
-  int64_t blocks = 0;
-  cudaError_t err = grid_blocks<RPL, WEIGHTED, T>(p, smem, &blocks);
+           size_t smem, cudaStream_t stream, const Report& report) {
+  const int threads = 32 * p.cols;
+  Occupancy occ;
+  cudaError_t err = resident_blocks<RPL, WEIGHTED, T>(threads, smem, &occ);
   if (err != cudaSuccess) return (int)err;
-  if (blocks_out) {  // a query: report the grid, launch nothing
-    *blocks_out = blocks;
+  int64_t blocks = (p.m + p.cols - 1) / p.cols;
+  const int64_t held = (int64_t)occ.sms * occ.per_sm;
+  if (blocks > held) blocks = held;
+  if (report.blocks) {  // the grid alone
+    *report.blocks = blocks;
     return 0;
   }
-  mm_two_pass<RPL, WEIGHTED, T><<<(unsigned)blocks, 32 * p.cols, smem,
-                                  stream>>>(static_cast<const T*>(x), a,
-                                            static_cast<T*>(out), p);
+  if (report.query) {
+    snprintf(report.query->name, report.query->name_len,
+             "mm_two_pass<%d, %s, %s>", RPL, WEIGHTED ? "true" : "false",
+             mm::type_name<T>());
+    return mm::report(report.query, blocks, threads, smem, occ.per_sm,
+                      occ.sms);
+  }
+  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+  mm_two_pass<RPL, WEIGHTED, T><<<(unsigned)blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), a, static_cast<T*>(out), p);
   return (int)cudaGetLastError();
 }
 
 template <bool WEIGHTED, typename T>
 int launch_rows(const void* x, const float* a, void* out, const Params& p,
-                size_t smem, cudaStream_t s, int64_t* blocks) {
-  if (p.bk <= 32) return launch<1, WEIGHTED, T>(x, a, out, p, smem, s, blocks);
-  if (p.bk == 64) return launch<2, WEIGHTED, T>(x, a, out, p, smem, s, blocks);
-  if (p.bk == 128) return launch<4, WEIGHTED, T>(x, a, out, p, smem, s, blocks);
-  if (p.bk == 256) return launch<8, WEIGHTED, T>(x, a, out, p, smem, s, blocks);
-  if (p.bk == 512)
-    return launch<16, WEIGHTED, T>(x, a, out, p, smem, s, blocks);
+                size_t smem, cudaStream_t s, const Report& r) {
+  if (p.bk <= 32) return launch<1, WEIGHTED, T>(x, a, out, p, smem, s, r);
+  if (p.bk == 64) return launch<2, WEIGHTED, T>(x, a, out, p, smem, s, r);
+  if (p.bk == 128) return launch<4, WEIGHTED, T>(x, a, out, p, smem, s, r);
+  if (p.bk == 256) return launch<8, WEIGHTED, T>(x, a, out, p, smem, s, r);
+  if (p.bk == 512) return launch<16, WEIGHTED, T>(x, a, out, p, smem, s, r);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -671,12 +679,12 @@ size_t smem_bytes(int k, int nc, int bk, int cols) {
          (kb > 1 ? sizeof(uint16_t) * k_pad * cols : 0);
 }
 
-// Checks the launch arguments and runs (blocks == nullptr) or sizes
-// (blocks != nullptr) one launch.
+// Checks the launch arguments and runs (report empty) or reports one
+// launch.
 int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
              const void* a, int n, void* out, int bk, int nc, int cols,
              int num_iters, float c, int weighted, void* stream,
-             int64_t* blocks) {
+             const Report& report) {
   if (k < 1 || n < 1 || m < 1 || bk < 2 || bk > 32 * kMaxRowsPerLane ||
       (bk & (bk - 1)) || nc < 1 || nc > n || cols < 1 || cols > kMaxCols ||
       (cols & (cols - 1)))
@@ -687,13 +695,14 @@ int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
   const float* af = static_cast<const float*>(a);
   const size_t smem = smem_bytes(k, nc, bk, cols);
   if (dtype == 0)
-    return weighted ? launch_rows<true, float>(x, af, out, p, smem, s, blocks)
-                    : launch_rows<false, float>(x, af, out, p, smem, s, blocks);
+    return weighted ? launch_rows<true, float>(x, af, out, p, smem, s, report)
+                    : launch_rows<false, float>(x, af, out, p, smem, s, report);
   if (dtype == 1)
     return weighted
-               ? launch_rows<true, __nv_bfloat16>(x, af, out, p, smem, s, blocks)
+               ? launch_rows<true, __nv_bfloat16>(x, af, out, p, smem, s,
+                                                  report)
                : launch_rows<false, __nv_bfloat16>(x, af, out, p, smem, s,
-                                                   blocks);
+                                                   report);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -721,7 +730,7 @@ int mm_two_pass_launch(const void* x, int dtype, int64_t ld, int k, int64_t m,
                        int cols, int num_iters, float c, int weighted,
                        void* stream) {
   return dispatch(x, dtype, ld, k, m, a, n, out, bk, nc, cols, num_iters, c,
-                  weighted, stream, nullptr);
+                  weighted, stream, Report{nullptr, nullptr});
 }
 
 // The blocks mm_two_pass_launch would launch for these arguments on the
@@ -731,7 +740,29 @@ int mm_two_pass_blocks(int dtype, int k, int64_t m, int n, int bk, int nc,
                        int cols, int weighted, int64_t* blocks) {
   if (blocks == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch(nullptr, dtype, m, k, m, nullptr, n, nullptr, bk, nc, cols,
-                  0, 1.0f, weighted, nullptr, blocks);
+                  0, 1.0f, weighted, nullptr, Report{nullptr, blocks});
+}
+
+// What mm_two_pass_launch would launch for these arguments on the current
+// device, through the same dispatch, launching nothing: in out[0..4] the
+// blocks, threads a block, dynamic shared memory, the blocks of that size
+// one SM holds (0 where none fits) and the SM count; in `name` the
+// kernel's instantiation.  Returns a cudaError_t.
+int mm_two_pass_config(int dtype, int k, int64_t m, int n, int bk, int nc,
+                       int cols, int weighted, int64_t* out, char* name,
+                       int name_len) {
+  if (out == nullptr || name == nullptr || name_len < 1)
+    return (int)cudaErrorInvalidValue;
+  mm::LaunchQuery q{0, 0, 0, 0, 0, name, name_len};
+  const int err = dispatch(nullptr, dtype, m, k, m, nullptr, n, nullptr, bk,
+                           nc, cols, 0, 1.0f, weighted, nullptr,
+                           Report{&q, nullptr});
+  out[0] = q.blocks;
+  out[1] = q.threads;
+  out[2] = q.smem;
+  out[3] = q.per_sm;
+  out[4] = q.sms;
+  return err;
 }
 
 }  // extern "C"

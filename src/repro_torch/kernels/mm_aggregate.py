@@ -25,6 +25,17 @@ kernel's arithmetic on the padded operands: the sorted-order f32
 cumulative weights, the crossing with no epsilon, the rank midpoints,
 and the per-block approximation.
 
+``kernel_call`` turns a plan into the launch the wrapper makes, as data
+(``KernelCall``: the kernel's instantiation, threads, shared memory, the
+units its blocks walk, its operands), and the wrappers take their launch
+arguments from it; ``repro_torch.analysis.contracts`` audits it against
+the plan, and on the card against the C entry points' own report
+(``launch_query``).  Inside a ``record_calls()`` scope every wrapper call
+appends its ``KernelCall``, on any device.  A wrapper given a tensor on
+the meta device records its call and returns an empty (N, M) meta tensor:
+shape-only work for the dry run (``launch.dryrun``), which computes
+nothing.
+
 ``launch_plan`` is the single source of truth for a launch's geometry,
 its modeled HBM traffic and the shared memory a block carves, against
 Hopper's 227 KB (232,448 B) per block.  The path crossover follows from
@@ -43,6 +54,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -91,6 +104,8 @@ LAUNCHES = {"single_pass": 0, "two_pass": 0}
 LAUNCHES_BY_VARIANT = {v: 0 for v in SINGLE_PASS_VARIANTS}
 # the same launches by (variant or "two_pass", K, M, N); emptied, not zeroed
 LAUNCHES_BY_SHAPE: dict = {}
+# the lists of the open record_calls() scopes
+_CALL_RECORDERS: list = []
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -318,6 +333,213 @@ def launch_plan(k: int, m: int, n: int = 1, *,
     )
 
 
+def modeled_ops(k: int, m: int, n: int, weighted: bool, num_iters: int = 10,
+                sort_rows: int = 0) -> int:
+    """f32 operations the MM estimate of a (k, m) x (k, n) launch needs,
+    an FMA counted as two (as the peak rate counts it).  Per (column, n)
+    and IRLS step, each row takes 9: r = x - mu, r * r, 1 - r^2 / (c
+    scale)^2 as one FMA against the folded constant, the clamp at 0, the
+    square, num += w x as an FMA, den += w; weights add one multiply.
+    Each step adds the divide and the test, and the folded constant costs
+    3 once.  The start takes 2 per row for the deviations and compares of
+    the MAD and, weighted, 2 for the cumulative weight and its compare.
+    Sorting a column costs K log2 K compares (log2 of the sorted block,
+    ``sort_rows``, where the column is sorted in blocks)."""
+    per_row = 9 + int(weighted)
+    start = 2 * k + (2 * k if weighted else 2) + 3
+    sort = k * max(1, math.ceil(math.log2(max(sort_rows or k, 2))))
+    return n * m * (num_iters * (per_row * k + 2) + start) + m * sort
+
+
+class Operand(NamedTuple):
+    """One array a launch reads or writes in HBM."""
+    name: str
+    shape: Tuple[int, ...]
+    dtype: str
+
+
+class KernelCall(NamedTuple):
+    """The launch one wrapper call makes for ``plan``, as data.
+
+    Built by ``kernel_call``, whose ``args`` the wrappers hand to the C
+    entry point, so ``repro_torch.analysis.contracts`` audits the launch
+    that runs.  ``units`` are what the blocks walk (column tiles; for
+    ``warp``, blocks of eight (column, n) pairs), ``stride`` the step of
+    that walk (block b takes units b, b + stride, ...; 0: the blocks
+    launched, as every kernel steps by its grid), ``grid_stride``
+    whether the card decides the blocks (min(units, blocks it holds at
+    once)) or each unit has its own block.  ``tile`` is the (rows,
+    columns) of x one load brings on chip and ``loads`` how many such
+    loads the launch makes.  ``operands`` are x (K, M) in its dtype, a
+    (K, N) f32 and the (N, M) output; ``outputs`` the HBM outputs."""
+    plan: LaunchPlan
+    instantiation: str
+    threads: int
+    smem: int
+    units: int
+    stride: int
+    grid_stride: bool
+    tile: Tuple[int, int]
+    loads: int
+    operands: Tuple[Operand, ...]
+    outputs: Tuple[Operand, ...]
+    args: Tuple[int, ...]       # the C launch's geometry arguments
+    weighted: bool = True
+    num_iters: int = 10
+
+    @property
+    def k(self) -> int:
+        return self.operands[0].shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.operands[0].shape[1]
+
+    @property
+    def key(self) -> tuple:
+        """(variant or "two_pass", K, M, N): the launch counts' key."""
+        return (self.plan.variant or "two_pass", self.k, self.m,
+                self.plan.n_out)
+
+    def blocks(self, held: Optional[int] = None) -> int:
+        """Blocks launched when the card holds ``held`` blocks at once."""
+        if not self.grid_stride:
+            return self.units
+        return min(self.units, held) if held is not None else self.units
+
+    @property
+    def ops(self) -> int:
+        """``modeled_ops`` of the launch."""
+        two = self.plan.path == "two_pass"
+        return modeled_ops(self.k, self.m, self.plan.n_out, self.weighted,
+                           self.num_iters,
+                           sort_rows=self.plan.block_k if two else 0)
+
+    def to_dict(self) -> dict:
+        return {"kernel": self.instantiation, "key": list(self.key),
+                "dtype": self.operands[0].dtype, "weighted": self.weighted,
+                "threads": self.threads, "smem": self.smem,
+                "units": self.units, "grid_stride": self.grid_stride,
+                "tile": list(self.tile), "loads": self.loads,
+                "bytes": self.plan.total_bytes, "ops": self.ops}
+
+
+_TYPE_NAMES = {torch.float32: "float", torch.bfloat16: "bf16"}
+
+
+def kernel_call(plan: LaunchPlan, *, k: int, m: int, dtype=torch.float32,
+                weighted: bool = True, num_iters: int = 10) -> KernelCall:
+    """The launch ``plan`` makes over a (k, m) x, as the C entry points
+    configure it: the instantiation their dispatch picks, threads a
+    block, dynamic shared memory, the walk and the operands.  Launches
+    nothing."""
+    return _realized_call(plan, int(k), int(m), _as_dtype(dtype),
+                          bool(weighted), int(num_iters))
+
+
+# a wrapper asks for its call on every launch: the same few geometries
+# over and over (a scenario's steps, a train step's leaves), so the
+# immutable calls are kept rather than rebuilt on the launch's host path
+@functools.lru_cache(maxsize=4096)
+def _realized_call(plan: LaunchPlan, k: int, m: int, dtype: torch.dtype,
+                   weighted: bool, num_iters: int) -> KernelCall:
+    n = plan.n_out
+    tname = _TYPE_NAMES[dtype]
+    tiles = -(-m // plan.block_m)
+    if plan.path == "two_pass":
+        rpl = max(1, plan.block_k // 32)
+        inst = f"mm_two_pass<{rpl}, {'true' if weighted else 'false'}, " \
+               f"{tname}>"
+        threads, units, grid_stride = 32 * plan.block_m, tiles, True
+        smem = two_pass_smem_bytes(k, plan.n_chunk, plan.block_k,
+                                   plan.block_m)
+        # its (K_pad, bm) tile arrives as num_k_blocks (bk, bm) loads
+        tile, loads = (plan.block_k, plan.block_m), tiles * plan.num_k_blocks
+        args = (plan.block_k, plan.n_chunk, plan.block_m)
+    else:
+        v = plan.variant
+        smem = variant_smem_bytes(v, k, n, plan.block_m)
+        args = (plan.block_m, SINGLE_PASS_VARIANTS[v])
+        if v == "regs":
+            kmax = 8 if k <= 8 else 16 if k <= 16 else 32
+            inst, threads = f"mm_regs<{kmax}, {tname}>", plan.block_m
+            units, grid_stride = tiles, True
+            tile, loads = (k, plan.block_m), tiles
+        elif v == "warp":
+            # one warp a (column, n) pair, eight to a block: each warp
+            # loads its column, so a column is loaded once per n
+            inst = f"mm_warp<{1 if k <= 32 else 2}, {tname}>"
+            threads, units, grid_stride = 256, -(-m * n // 8), False
+            tile, loads = (k, 1), m * n
+        else:
+            inst, threads = f"mm_smem<{tname}>", 256
+            units, grid_stride = tiles, False
+            tile, loads = (k, plan.block_m), tiles
+    dname = dtype_name(dtype)
+    out = Operand("out", (n, m), dname)
+    return KernelCall(
+        plan=plan, instantiation=inst, threads=threads, smem=smem,
+        units=units, stride=0, grid_stride=grid_stride, tile=tile,
+        loads=loads,
+        operands=(Operand("x", (k, m), dname),
+                  Operand("a", (k, n), "float32"), out),
+        outputs=(out,), args=args, weighted=weighted, num_iters=num_iters)
+
+
+def launch_query(call: KernelCall) -> dict:
+    """What the C entry point would launch for ``call`` on the current
+    card, through its own dispatch (``mm_*_config``), launching nothing:
+    the instantiation, blocks, threads, dynamic shared memory, the blocks
+    of that size one SM holds (0 where none fits) and the SM count."""
+    out = (ctypes.c_int64 * 5)()
+    name = ctypes.create_string_buffer(96)
+    code = _DTYPE_CODES[_as_dtype(call.operands[0].dtype)]
+    if call.plan.path == "two_pass":
+        lib = build.library("mm_two_pass")
+        err = lib.mm_two_pass_config(code, call.k, call.m, call.plan.n_out,
+                                     *call.args, int(call.weighted),
+                                     ctypes.byref(out), ctypes.byref(name),
+                                     len(name))
+        smem_model = lib.mm_two_pass_smem_bytes(
+            call.k, call.plan.n_chunk, call.plan.block_k, call.plan.block_m)
+    else:
+        lib = build.library("mm_single_pass")
+        err = lib.mm_single_pass_config(code, call.k, call.m,
+                                        call.plan.n_out, *call.args,
+                                        ctypes.byref(out), ctypes.byref(name),
+                                        len(name))
+        smem_model = lib.mm_single_pass_smem_bytes(
+            call.args[1], call.k, call.plan.n_out, call.plan.block_m)
+    if err:
+        raise RuntimeError(f"launch query for {call.instantiation} failed: "
+                           f"cudaError {err}")
+    return {"instantiation": name.value.decode(), "blocks": out[0],
+            "threads": out[1], "smem": out[2], "per_sm": out[3],
+            "sms": out[4], "smem_model": smem_model}
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Collect the ``KernelCall`` of every wrapper call made inside the
+    scope, one per call, on every device (the CPU's plain versions, the
+    card, CUDA-graph capture and the meta device).  ``LAUNCHES`` counts
+    CUDA launches outside capture only."""
+    records: list = []
+    _CALL_RECORDERS.append(records)
+    try:
+        yield records
+    finally:
+        for i, r in enumerate(_CALL_RECORDERS):
+            if r is records:
+                del _CALL_RECORDERS[i]
+                break
+
+
+def _record_call(call: KernelCall) -> None:
+    for records in _CALL_RECORDERS:
+        records.append(call)
+
+
 def _pad_inputs(x: torch.Tensor, a: torch.Tensor, *, plan: LaunchPlan
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pad (K, M) values and (K, N) weights to the plan's geometry, as
@@ -475,7 +697,7 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
     if plan.path == "two_pass" and plan.block_k > _MAX_BLOCK_K2:
         raise ValueError(f"the two-pass kernel sorts blocks of at most "
                          f"{_MAX_BLOCK_K2} rows, got block_k={plan.block_k}")
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"the MM kernels run on CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -529,6 +751,23 @@ def _launch_args(x, a, out, plan):
             x.shape[1], a.data_ptr(), plan.n_out, out.data_ptr()), stream
 
 
+def _wrapper_call(x: torch.Tensor, plan: LaunchPlan, weighted: bool,
+                  num_iters: int) -> KernelCall:
+    """The call's ``KernelCall``, recorded in every open ``record_calls``
+    scope."""
+    k, m = x.shape
+    call = _realized_call(plan, k, m, x.dtype, weighted, num_iters)
+    _record_call(call)
+    return call
+
+
+def _meta_out(x: torch.Tensor, plan: LaunchPlan) -> torch.Tensor:
+    """The (N, M) estimate of a launch on the meta device (which passed
+    the card's checks): its shape and dtype, computed by nothing."""
+    return torch.empty((plan.n_out, x.shape[1]), dtype=x.dtype,
+                       device=x.device)
+
+
 def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
                 num_iters: int = 10, c: float = mestimators.TUKEY_C95,
                 weighted: bool = True) -> torch.Tensor:
@@ -536,16 +775,18 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     Launches the plan's variant of the CUDA kernel for a CUDA tensor,
     runs the plain version for a CPU tensor."""
     k, m = x.shape
+    call = _wrapper_call(x, plan, weighted, num_iters)
     if x.device.type == "cpu":
         xp, ap = _pad_inputs(x, a, plan=plan)
         return mm_single_pass_plain(xp, ap, k=k, num_iters=num_iters, c=c,
                                     weighted=weighted)[:, :m]
     _check_cuda_operands(x, a, plan, k)
+    if x.device.type == "meta":
+        return _meta_out(x, plan)
     out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
     args, stream = _launch_args(x, a, out, plan)
     err = build.library("mm_single_pass").mm_single_pass_launch(
-        *args, plan.block_m, SINGLE_PASS_VARIANTS[plan.variant], num_iters, c,
-        int(weighted), stream)
+        *args, *call.args, num_iters, c, int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_single_pass ({plan.variant}) launch failed: "
                            f"cudaError {err}")
@@ -559,17 +800,19 @@ def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     """Two-pass K-major MM aggregation, as ``single_pass``: one kernel
     launch per call, which sums the K block masses itself."""
     k, m = x.shape
+    call = _wrapper_call(x, plan, weighted, num_iters)
     if x.device.type == "cpu":
         xp, ap = _pad_inputs(x, a, plan=plan)
         return mm_two_pass_plain(xp, ap, k=k, block_k=plan.block_k,
                                  num_iters=num_iters, c=c,
                                  weighted=weighted)[:, :m]
     _check_cuda_operands(x, a, plan, k)
+    if x.device.type == "meta":
+        return _meta_out(x, plan)
     out = torch.empty((plan.n_out, m), dtype=x.dtype, device=x.device)
     args, stream = _launch_args(x, a, out, plan)
     err = build.library("mm_two_pass").mm_two_pass_launch(
-        *args, plan.block_k, plan.n_chunk, plan.block_m, num_iters, c,
-        int(weighted), stream)
+        *args, *call.args, num_iters, c, int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_two_pass launch failed: cudaError {err}")
     _count_launch(plan, k, m)

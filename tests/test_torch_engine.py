@@ -8,6 +8,7 @@ shared memory.
 """
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -87,12 +88,18 @@ def test_plan_validation():
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():
+    # meta tensors (the dry run) get the estimate's shape, computed by
+    # nothing; any other device that is not the card is refused
     x = torch.empty((4, 10), device="meta")
     a = torch.empty((4, 1), device="meta")
     plan = TK.launch_plan(4, 10, 1)
+    other = types.SimpleNamespace(shape=(4, 10), dtype=torch.float32,
+                                  device=torch.device("xpu"))
     for run in (TK.single_pass, TK.two_pass):
+        out = run(x, a, plan)
+        assert out.device.type == "meta" and tuple(out.shape) == (1, 10)
         with pytest.raises(ValueError, match="CUDA"):
-            run(x, a, plan)
+            run(other, a, plan)
 
 
 def _tree(seed=0):
