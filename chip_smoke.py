@@ -100,8 +100,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
               launched gets a kernels-line entry.
 
  11 serve     the streaming service (repro_torch.serve) through its
-              replay harness, as benchmarks/serve_bench.py drives the
-              JAX package: the clean, stragglers, network and mixed
+              replay harness, through repro_torch.benchmarks.serve_bench
+              .run: the clean, stragglers, network and mixed
               (2 tenants sharing one cache) chaos profiles, 16 agents a
               tenant, dim 8, k_min 8, deadline 1 s, 30 rounds, seed 0,
               on the kernel backend.  Each profile must stay in its
@@ -230,7 +230,23 @@ Phases, each printing one JSON line (any failure exits nonzero):
               whose bytes sent by kind must equal every rank's in every
               step of fsdp_train.  The predicted peak (arguments + saved
               for backward, and the live peak) beside the measured
-              max_memory_allocated, not gated.
+              max_memory_allocated, not gated.  Each pair's record goes to
+              experiments/dryrun_torch/ (DRYRUN_DIR) for the roofline.
+ 26 bench     the port's benchmarks (repro_torch.benchmarks), each as a
+              user runs it, from the checkout's root: paper_fig1 at the
+              paper's size (K = 32, d = 10, 1000 iterations, 33 settings;
+              C1, C2 and C3 must PASS, C3's clean-efficiency clause on
+              the median over seeds 0-3, every steady MSD finite); run.py
+              --only agg,kernel,roofline (every row finite; kernel_bench's
+              13 kernel rows each within 1e-5 x max(1, |x|_inf) of the
+              plain version; agg_bench's substrate row trains full-size
+              Qwen3-0.6B with K = 8 agents, 10 steps, its peak memory
+              printed; a roofline row for each record the dryrun phase
+              wrote); scenario_sweep --family large_cohort --json;
+              serve_bench --json; bench_audit over the three JSON files in
+              experiments/bench_torch/ (every audit ok).  Each (variant, K,
+              M, N) a step launched gets a kernels-line entry (10 launches
+              in its event pair).
 
 The service's launches are CUDA-graph replays: the kernel wrappers
 count the warm-up launch before each capture, and each replay adds its
@@ -281,7 +297,8 @@ PHASES = ("build", "contracts", "parity", "paper", "cohort", "width",
           "batch", "cohort_width", "autotune", "entry_points", "serve",
           "serve_width", "serve_cohort", "lm_train", "lm_serve", "ssm_train",
           "ssm_serve", "hybrid_train", "hybrid_serve", "audio_train",
-          "audio_serve", "sharded", "fsdp_train", "fsdp_serve", "dryrun")
+          "audio_serve", "sharded", "fsdp_train", "fsdp_serve", "dryrun",
+          "bench")
 # torch.profiler windows traced for one kernels-line entry before its
 # device time is reported as missing (Smoke.profiler_ms)
 PROFILER_WINDOWS = 12
@@ -380,6 +397,12 @@ DRYRUN_PAIRS = tuple(
                       "stablelm_3b", "llava_next_34b")
      for s in ("decode_32k", "long_500k")]
     + [("qwen3_0p6b", "train_4k"), ("qwen3_0p6b", "prefill_32k")])
+# where the dryrun phase writes its records (the bench phase's roofline
+# reads them) and the bench phase its outputs
+DRYRUN_DIR = HERE / "experiments" / "dryrun_torch"
+BENCH_DIR = HERE / "experiments" / "bench_torch"
+# the bench phase's kernels-line entries: launches in one event pair
+BENCH_TIMED_LAUNCHES = 10
 DRYRUN_LEFT_OUT_WHY = ("the other archs' train_4k and prefill_32k traces "
                        "take 20 s to an hour of one core (PERF.md, the "
                        "dry-run table)")
@@ -555,6 +578,7 @@ class Smoke:
         self.kernel_shapes = set()
         self.contracts_ran = False
         self.fsdp_traffic = None   # fsdp_train's bytes sent by rank 0, a step
+        self.dryrun_records = 0    # records the dryrun phase wrote (bench)
 
     # -- helpers -----------------------------------------------------------
 
@@ -1407,12 +1431,13 @@ class Smoke:
         return rc, out.getvalue(), counts, dict(self.by_shape), \
             time.perf_counter() - t0
 
-    def measure_launched(self, label, by_shape, weighted):
+    def measure_launched(self, label, by_shape, weighted, launches=50):
         """A kernels-line entry for each (variant, K, M, N) a main path
         launched, with its launches there: the kernel at that shape on
         seeded inputs (the last K // 8 rows shifted by 1000; weighted
         where ``weighted`` or N > 1), timed and held to its plain version
-        as ``measure`` does."""
+        as ``measure`` does (the plain version's (K, N, chunk)
+        temporaries within 512 MB each)."""
         torch = self.torch
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
@@ -1433,9 +1458,12 @@ class Smoke:
             if not two:
                 by_variant[variant] = launches
             name = "mm_two_pass" if two else "mm_single_pass"
+            chunk = max(2 ** 16, 2 ** 27 // (k * n))
             self.measure(f"{name} ({label}, {variant} K={k} M={m} N={n})",
                          f"K={k} M={m} N={n} f32 ({label})", x, a, plan,
-                         counts, by_variant, weighted=w)
+                         counts, by_variant, weighted=w, launches=launches,
+                         chunk=chunk if m > chunk else None)
+            del x, a
 
     def entry_points(self):
         """The port's examples (repro_torch.examples), each with the gates
@@ -1587,22 +1615,27 @@ class Smoke:
 
     def serve(self):
         import dataclasses
-        from repro_torch.kernels import mm_aggregate as mk, ops
-        from repro_torch.scenarios.spec import ScenarioSpec
+        import contextlib
+        import io
+        from repro_torch.benchmarks import serve_bench
+        from repro_torch.kernels import ops
         from repro_torch.serve import CHAOS_PROFILES, ServeConfig, replay
         cfg = ServeConfig(k_min=8, deadline_s=1.0, backend="pallas")
 
-        def run(profile, tenants, chaos=None):
-            spec = ScenarioSpec(
-                name=f"serve-{profile}", paradigm="federated",
-                num_agents=16 * tenants, dim=8, num_steps=SERVE_ROUNDS,
-                step_size=0.05, local_steps=3)
-            return replay(spec, chaos=chaos or CHAOS_PROFILES[profile],
-                          serve=cfg, rounds=SERVE_ROUNDS, seed=0,
+        def run(profile, tenants, chaos):
+            return replay(serve_bench.spec_for(profile, SERVE_ROUNDS),
+                          chaos=chaos, serve=cfg, rounds=SERVE_ROUNDS, seed=0,
                           tenants=tenants, device="cuda")
 
-        results, counts, variants = self.main_path(
-            lambda: [run(p, t) for p, t in SERVE_PROFILES])
+        # serve_bench's profiles, as benchmarks/serve_bench.py runs them
+        assert SERVE_PROFILES == tuple(
+            (p, serve_bench.PROFILE_TENANTS.get(p, 1))
+            for p in serve_bench.DEFAULT_PROFILES)
+        results = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, counts, variants = self.main_path(lambda: serve_bench.run(
+                serve_bench.DEFAULT_PROFILES, rounds=SERVE_ROUNDS,
+                device="cuda", results=results))
         rows, replays, captures = [], 0, 0
         for (profile, tenants), res in zip(SERVE_PROFILES, results):
             row = res.to_row()
@@ -1653,7 +1686,7 @@ class Smoke:
             CHAOS_PROFILES["mixed"], crash_restart_frac=(0.5,)))
         assert crash.duplicate_admissions == 0 and \
             crash.crash_restarts == 2, crash.to_row()
-        again = [run("mixed", 2) for _ in range(2)]
+        again = [run("mixed", 2, CHAOS_PROFILES["mixed"]) for _ in range(2)]
         same = all(again[0].journals[n].dump() == again[1].journals[n].dump()
                    for n in again[0].journals)
         assert same, "two runs of one replay wrote different journals"
@@ -2492,6 +2525,9 @@ class Smoke:
         t0 = time.perf_counter()
         for arch, shape in DRYRUN_PAIRS:
             rec = D.trace_pair(arch, shape)
+            # the bench phase's roofline reads them
+            D.write_record(str(DRYRUN_DIR), rec)
+            self.dryrun_records += 1
             mem = rec["memory"]
             emit({"phase": "dryrun_pair", "arch": arch, "shape": shape,
                   "mode": rec["mode"], "trace_s": rec["trace_s"],
@@ -2608,6 +2644,132 @@ class Smoke:
         emit({"phase": "dryrun", "pairs": len(DRYRUN_PAIRS),
               "left_out": len(left), "matrix_s": matrix_s,
               "qwen3_mode_a_gates": list(gates), "mode_b_gate": "sent_bytes"})
+
+    # -- the benchmarks ------------------------------------------------------
+
+    def bench(self):
+        """The port's benchmarks (repro_torch.benchmarks), each a main
+        path, from the checkout's root: paper_fig1 at 1000 iterations
+        (every claim PASS, every steady MSD finite); run.py --only
+        agg,kernel,roofline (every row finite, each kernel row within
+        1e-5 x max(1, |x|_inf) of its plain version, a roofline row for
+        each record the dryrun phase wrote); scenario_sweep --family
+        large_cohort --json; serve_bench --json; bench_audit over the
+        three JSON files in BENCH_DIR (every audit ok).  Each (variant,
+        K, M, N) launched gets a kernels-line entry."""
+        import os
+        cwd = os.getcwd()
+        os.chdir(HERE)          # the benchmarks' default outputs and inputs
+        try:
+            self._bench()
+        finally:
+            os.chdir(cwd)
+
+    def _bench_step(self, label, fn):
+        """fn() as a main path with its standard output kept: (result,
+        output, launches, launches by (variant, K, M, N), seconds)."""
+        import contextlib
+        import io
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result, counts, _ = self.main_path(fn)
+        seconds = time.perf_counter() - t0
+        emit({"phase": "bench", "step": label, "seconds": seconds,
+              "launches": counts,
+              "by_shape": [list(k) + [v] for k, v in
+                           sorted(self.by_shape.items())]})
+        return result, out.getvalue(), counts, dict(self.by_shape), seconds
+
+    def _bench(self):
+        import io
+        torch = self.torch
+        from repro_torch.analysis import bench_audit
+        from repro_torch.benchmarks import run as bench_run, serve_bench
+        from repro_torch.examples import paper_fig1, scenario_sweep
+        dev = str(self.dev)
+        torch.cuda.empty_cache()
+        BENCH_DIR.mkdir(parents=True, exist_ok=True)
+        files = {kind: str(BENCH_DIR / f"BENCH_{kind}_torch.json")
+                 for kind in ("agg", "large_cohort", "serve")}
+
+        # the paper's Fig. 1 at its size: K = 32, d = 10, 1000 iterations
+        rc, out, counts, _, fig1_s = self._bench_step(
+            "paper_fig1", lambda: paper_fig1.main(
+                ["--iters", "1000", "--device", dev]))
+        steady, claims = {}, {}
+        lines = out.splitlines()
+        for line in lines[1:-1]:
+            name, value = line.split()
+            if name.startswith("fig1/claim"):
+                claims[name] = value
+            else:
+                steady[name] = float(value)
+        # the last line: C3's clean ratio for each of its seeds
+        ratios = [float(v) for v in
+                  lines[-1].split(": ")[1].split(" (")[0].split()]
+        emit({"phase": "bench_fig1", "rc": rc, "claims": claims,
+              "c3_clean_ratios": ratios, "steady_msd": steady,
+              "settings": len(steady), "seconds": fig1_s,
+              "launches": counts})
+        assert rc == 0 and len(claims) == 3 and \
+            set(claims.values()) == {"PASS"}, claims
+        assert len(steady) == 33 and all(math.isfinite(v)
+                                         for v in steady.values()), steady
+
+        # run.py --only agg,kernel,roofline
+        csv = io.StringIO()
+        (rows, failed), _, counts, run_shapes, run_s = self._bench_step(
+            "run agg,kernel,roofline", lambda: bench_run.run(
+                {"agg", "kernel", "roofline"}, out=csv, device=dev,
+                agg_json=files["agg"]))
+        (BENCH_DIR / "run.csv").write_text(csv.getvalue())
+        assert not failed, csv.getvalue()[-2000:]
+        bad = [r[:3] for r in rows if not math.isfinite(r[1]) or (
+            isinstance(r[2], (int, float)) and not math.isfinite(r[2]))]
+        assert not bad, bad
+        kernel_rows = [{"name": r[0], "us": r[1], **r[3]} for r in rows
+                       if r[0].startswith("kernel/") and len(r) > 3
+                       and r[3] is not None]
+        assert len(kernel_rows) == 13 and all(
+            k["max_abs_err"] <= k["tol"] for k in kernel_rows), kernel_rows
+        roof = [r for r in rows if r[0].startswith("roofline/")]
+        if self.dryrun_records:
+            assert len(roof) == self.dryrun_records == len(DRYRUN_PAIRS), roof
+            assert {tuple(r[0].split("/")[1:3]) for r in roof} == \
+                set(DRYRUN_PAIRS), roof
+        with open(files["agg"]) as f:
+            agg = json.load(f)
+        emit({"phase": "bench_run", "seconds": run_s, "rows": len(rows),
+              "launches": counts, "kernel_rows": kernel_rows,
+              "agg_rows": [[r[0], r[1], r[2]] for r in rows
+                           if not r[0].startswith(("kernel/", "roofline/"))],
+              "substrate": agg["substrate"], "irls_sweep": agg["irls_sweep"],
+              "traffic_audit": agg["traffic_audit"],
+              "roofline": [[r[0], r[1], r[2]] for r in roof]})
+
+        # the large-cohort family, and the service under chaos
+        rc, _, _, sweep_shapes, _ = self._bench_step(
+            "scenario_sweep large_cohort", lambda: scenario_sweep.main(
+                ["--family", "large_cohort", "--json", files["large_cohort"],
+                 "--device", dev]))
+        assert rc == 0, rc
+        rc, out, _, serve_shapes, _ = self._bench_step(
+            "serve_bench", lambda: serve_bench.main(
+                ["--json", files["serve"], "--device", dev]))
+        assert rc == 0, out[-2000:]
+
+        # the audits over the three files
+        rc, out, _, _, _ = self._bench_step(
+            "bench_audit", lambda: bench_audit.main(list(files.values())))
+        emit({"phase": "bench_audit", "rc": rc, "lines": out.splitlines()})
+        assert rc == 0, out
+
+        for label, shapes in (("bench run", run_shapes),
+                              ("bench large_cohort", sweep_shapes),
+                              ("bench serve_bench", serve_shapes)):
+            self.measure_launched(label, shapes, weighted=False,
+                                  launches=BENCH_TIMED_LAUNCHES)
 
     def kernels_line(self) -> None:
         if self.contracts_ran:

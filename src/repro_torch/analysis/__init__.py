@@ -11,6 +11,9 @@ Two passes, one CLI gate (``python -m repro_torch.analysis``):
                 step, no host sync on the card, bf16 streams not
                 upcast, no re-capture in a steady service).
 
+``bench_audit`` (``python -m repro_torch.analysis.bench_audit``) holds
+the benchmarks' JSON files to their rules.
+
 Intentional exceptions live in ``ANALYSIS_BASELINE_TORCH.json`` (repo
 root), every entry with a reason string; the CLI exits non-zero on any
 unbaselined finding.  The reference's lint pass already lints this

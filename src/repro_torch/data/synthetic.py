@@ -49,6 +49,13 @@ class LinearModelProblem:
         """The normalized target model, float32 on ``device``."""
         return torch.from_numpy(self.w_star_np).to(devices.resolve(device))
 
+    def grad_fn(self, device="cuda"):
+        """Stacked stochastic LMS gradients for all K agents (Eq. 33):
+        (W (K, M), gen) -> (K, M), grad_hat = -u (d - u^T w) with
+        d = u^T w_star + v, a fresh (u, v) per agent per call.  K comes
+        from W, as in the reference: u is drawn (K, M), then v (K,)."""
+        return make_stacked_grad_fn(self, 1, device=device)
+
 
 def dirichlet_mixture(k_agents: int, alpha: float, num_components: int = 4,
                       seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:

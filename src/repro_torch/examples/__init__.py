@@ -5,6 +5,7 @@ examples (``examples/*.py``) that needs nothing beyond the port:
     python -m repro_torch.examples.quickstart --device cpu
 
 ``quickstart``, ``federated``, ``scenario_sweep``, ``serve_agg``,
-``serve_lm`` and ``train_robust_lm`` run the reference's specs and sizes
-and print its headlines; each takes ``--device`` (default ``cuda``).
+``serve_lm``, ``train_robust_lm`` and ``paper_fig1`` run the reference's
+specs and sizes and print its headlines; each takes ``--device``
+(default ``cuda``).
 """

@@ -222,6 +222,11 @@ def set_blocks(k: int, m: int, n: int, dtype, choice) -> None:
     _CACHE[_key(k, m, n, dtype)] = _as_choice(choice)
 
 
+def cache_size() -> int:
+    """Workloads with a cached choice in this process."""
+    return len(_CACHE)
+
+
 def cache_state() -> tuple:
     """Hashable fingerprint of the tuning state that block/path
     resolution depends on.  Anything that caches a launch program whose

@@ -414,6 +414,18 @@ def pairs(arch: str = "all", shape: str = "all") -> list:
     return [(a, s) for a in archs for s in shapes]
 
 
+def write_record(out_dir: str, rec: dict, tag: str = "") -> str:
+    """Write one pair's record as ``<arch>_<shape>_<mesh>[_tag].json``
+    under ``out_dir`` (what ``benchmarks.roofline`` reads); its path."""
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"_{tag}" if tag else ""
+    path = os.path.join(out_dir,
+                        f"{rec['arch']}_{rec['shape']}_{rec['mesh']}{tag}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return path
+
+
 def _traced(job: tuple) -> tuple:
     """One pair in a worker process: (pair, record or the failure)."""
     arch, shape, multi_pod, aggregation, ranks = job
@@ -467,10 +479,7 @@ def main(argv=None) -> int:
                 print(f"FAIL {a:24s} {s:12s} {meshname:6s} {err}",
                       flush=True)
                 continue
-            tag = f"_{args.tag}" if args.tag else ""
-            path = os.path.join(args.out, f"{a}_{s}_{meshname}{tag}.json")
-            with open(path, "w") as f:
-                json.dump(rec, f, indent=1)
+            write_record(args.out, rec, args.tag)
             mem = rec["memory"]
             print(f"OK   {a:24s} {s:12s} {meshname:6s} mode={rec['mode']:7s} "
                   f"trace={rec['trace_s']:7.1f}s "

@@ -2,7 +2,8 @@
 (``repro.scenarios.metrics``).
 
   msd        -- mean-square deviation to w_star over benign agents
-                (single-model paradigms: the one model's squared error)
+                (``msd_stack``; single-model paradigms: the one model's
+                squared error)
   loss       -- expected excess streaming MSE = msd + sigma_v^2
   consensus  -- mean squared distance of benign agents to their centroid
 """
@@ -13,6 +14,11 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.core import diffusion as _diffusion
+
+# re-export: the paper's Fig. 1 metric is THE msd for stacked states
+msd_stack = _diffusion.msd
 
 
 def msd_single(w: torch.Tensor, w_star: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ Two substrate models:
       paper's fixed-mu updates.
 
   ``model_config=<configs arch name>``  (e.g. "qwen3-0.6b")
-      The arch's reduced ``smoke_config`` transformer trained on uniform
+      The arch's reduced ``smoke_config`` (or, with ``full_config``, its
+      published config) transformer trained on uniform
       token batches: the global batch is split into ``num_agents``
       per-agent shards and every update is one robustly aggregated step
       of ``launch.steps.make_train_step_gspmd`` with
@@ -45,6 +46,9 @@ Metric semantics (the uniform history dict):
   schedule              "cosine" (LM default) | "constant" (lsq default)
   warmup_steps          LM default min(100, num_steps // 10 + 1)
   grad_clip             LM default 1.0, paper_lsq 0
+  full_config (False)   the arch's full published config in place
+                        of its smoke config (launch.train's
+                        --full-config)
   num_layers / d_model  LM model-shape overrides (launch.train's
                         --layers / --d-model, applied the same way)
   model_parallel        the reference's mesh model axis; one card has
@@ -109,7 +113,8 @@ def build_lm_components(spec: ScenarioSpec, device: torch.device):
         raise NotImplementedError(
             "model_parallel > 1 shards the reference's mesh model axis; the "
             "port's Mode A runs on one card")
-    model_cfg = configs.load_smoke(spec.model_config)
+    model_cfg = configs.load_arch(spec.model_config).model \
+        if pk.get("full_config") else configs.load_smoke(spec.model_config)
     # model-shape overrides, applied exactly as launch.train's
     # --layers / --d-model flags apply them
     if pk.get("num_layers"):

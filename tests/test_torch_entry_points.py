@@ -138,3 +138,19 @@ def test_train_robust_lm(capsys):
     assert summary["REF attacked"] < summary["mean attacked"]
     assert abs(summary["REF attacked"] - summary["mean clean"]) < 0.1
     assert out.count("agents=8 agg=") == 3       # 8 simulated agents a run
+
+
+def test_paper_fig1(tmp_path, capsys):
+    from repro_torch.examples import paper_fig1
+    rc = paper_fig1.main(["--iters", "20", "--device", "cpu",
+                          "--out-dir", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].split() == ["setting", "steady", "MSD"]
+    claims = [ln for ln in lines if ln.startswith("fig1/claim")]
+    assert len(claims) == 3 and all(ln.split()[-1] in ("PASS", "FAIL")
+                                    for ln in claims)
+    assert len(lines) == 1 + 30 + 3 + 3 + 1
+    assert lines[-1].startswith("C3 clean REF/mean steady MSD, seeds "
+                                "(0, 1, 2, 3): ")
+    assert (tmp_path / "fig1_left.csv").read_text().startswith("mean_d0,")
+    assert rc == (1 if any(ln.endswith("FAIL") for ln in claims) else 0)

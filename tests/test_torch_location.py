@@ -196,10 +196,17 @@ def test_port_never_imports_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {p.relative_to(REPO / "src").as_posix() for p in files[:-1]}
+    assert {f"repro_torch/benchmarks/{m}.py" for m in (
+        "fig1_msd", "kernel_bench", "agg_bench", "serve_bench", "roofline",
+        "run")} | {"repro_torch/examples/paper_fig1.py",
+                   "repro_torch/analysis/bench_audit.py"} <= names
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), (path, name)
+            # nor the reference's top-level benchmarks package
+            assert root not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                (path, name)
 
 
 def test_chip_smoke_shape_table_is_qwen3_0p6b():
