@@ -18,7 +18,10 @@ Phases, each printing one JSON line (any failure exits nonzero):
               holds); the launch pass on the card (MM kernels counted by
               torch.profiler, the steady calls under
               torch.cuda.set_sync_debug_mode("error"), bf16 streams, the
-              service's captures).  Each workload's KernelCall is printed
+              donation rule on the tree program (LoweredTree.donated and
+              the leaves a call releases), one replay of each audited
+              scenario's captured trajectory making num_steps x layouts
+              launches, the service's captures).  Each workload's KernelCall is printed
               beside its C query; any finding not in
               ANALYSIS_BASELINE_TORCH.json fails the phase.  When the
               kernels line is printed, every (variant, K, M, N) the main
@@ -43,21 +46,38 @@ Phases, each printing one JSON line (any failure exits nonzero):
               columns.  One summary line per kernel, variant and dtype,
               with its first failing cases.
   4 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
-              K=32 fully connected, d=10, 1 attacker at delta=1000) on the
-              kernel backend: steady MSD < 1e-2; the mean aggregator as the
-              breakdown contrast; the Robust-FedAvg MM setting of
-              examples/federated.py.  The single-pass kernel must launch.
-              The C3 spec runs twice: the second run hits the runner's
-              executable cache (compile_s == 0.0) and its histories equal
-              the first's bit for bit; both wall_clock_s are printed.
+              K=32 fully connected, d=10, 1 attacker at delta=1000, 500
+              steps) on the kernel backend: steady MSD < 1e-2; the mean
+              aggregator as the breakdown contrast; the Robust-FedAvg MM
+              setting of examples/federated.py (300 rounds); the
+              stacked sharded lowering (K = 32, 6 attackers, 300 steps).
+              The single-pass kernel must launch.  The three specs
+              each run as captured_run does: runner.loop on the spec's
+              lowering, state and seed, then a miss (trace_spec: a warm-up
+              step and the capture of the whole trajectory as one CUDA
+              graph, then one replay) and a hit (one replay) of
+              scenarios.run; both histories bit-equal to the loop's, the
+              hit's compile_s 0.0 and its launch counts the loop's, the
+              miss's the loop's plus the warm-up step's; compile_s,
+              wall_clock_s of the miss and the hit, the eager loop's
+              seconds and the hit's device busy share printed.
   5 cohort    the large_cohort family's federated smoke spec (1024 clients
-              at participation 0.5: a 512-agent aggregation).  The
+              at participation 0.5: a 512-agent aggregation), captured as
+              the paper phase's specs, with the same checks.  The
               two-pass kernel must launch and the MSD stay finite.
   6 width     K=8 agents' updates shaped like Qwen3-0.6B's parameter tree
               (14 leaves, 751,894,528 coordinates each), made on the card,
               one agent shifted by 1000, through AggregationEngine
               .aggregate_tree: one launch, checked against the plain
-              version over every column, timed with CUDA events.
+              version over every column, timed with CUDA events.  Then
+              (_width_compiled) engine.lower_tree(tree).compile(): a
+              CUDA graph of kernel->split whose one call (stage +
+              replay) launches once and gives aggregate_tree's estimate
+              bit for bit; AggregationEngine(donate_leaves=True)'s
+              aggregate_tree and tree program give it too and leave every
+              leaf at 0 bytes; max_memory_allocated of the plain and the
+              donated aggregate_tree from the same start, the donated at
+              least 2.9 GB lower (the estimate's 3.01 GB).
   7 batch     one aggregate_batched launch at (K, M, N) = (32, 2^20, 32),
               the diffusion case, beside its plain version; then the
               same over 256 fully connected agents, (256, 2^16, 256),
@@ -215,10 +235,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
               a 512-token prefill (timed) and decode logits teacher-
               forced on Mode A's greedy tokens (FSDP_SERVE_CHECKED
               positions), within 2^-4 x max(1, |logits|_inf) of Mode A's
-              unsharded steps; then 32 greedy tokens (ms per token).
+              unsharded steps; then FSDP_SERVE_TOKENS (8) greedy tokens
+              (ms per token; a token takes ~2 s over gloo).
  25 dryrun    repro_torch.launch.dryrun on meta tensors: the pairs of the
               arch x shape matrix in DRYRUN_PAIRS on 16 agent ranks (the
-              others named on a line first), each pair's counts printed;
+              others named on a line first), traced one after another
+              by a spawned process that starts with DRYRUN_MATRIX_FROM
+              (entry_points, whose times back no claim) and runs beside
+              the phases from there on (printed as matrix_beside_phases;
+              matrix_s is its wall time, matrix_wait_s this phase's
+              wait for it), each pair's counts printed;
               then a full-size Qwen3-0.6B Mode A step (K = 8 agents of one
               1024-token sequence, as lm_train) run on the card and traced
               on meta: the MM launches by (variant, K, M, N) (14), the
@@ -234,8 +260,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
               experiments/dryrun_torch/ (DRYRUN_DIR) for the roofline.
  26 bench     the port's benchmarks (repro_torch.benchmarks), each as a
               user runs it, from the checkout's root: paper_fig1 at the
-              paper's size (K = 32, d = 10, 1000 iterations, 33 settings;
-              C1, C2 and C3 must PASS, C3's clean-efficiency clause on
+              paper's size (K = 32, d = 10, 1000 iterations, 33 settings,
+              each run_diffusion a captured trajectory; C1, C2 and C3
+              must PASS, C3's clean-efficiency clause on
               the median over seeds 0-3, every steady MSD finite); run.py
               --only agg,kernel,roofline (every row finite; kernel_bench's
               13 kernel rows each within 1e-5 x max(1, |x|_inf) of the
@@ -248,9 +275,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
               M, N) a step launched gets a kernels-line entry (10 launches
               in its event pair).
 
-The service's launches are CUDA-graph replays: the kernel wrappers
-count the warm-up launch before each capture, and each replay adds its
-launch to their counts (ops.LaunchProgram.replay); the serve entries of
+The service's launches, the tree program's and the scenario runs' are
+CUDA-graph replays: the kernel wrappers count the warm-up launch before
+each capture but not the captured ones, which the program records
+(mm_aggregate.record_captured) and adds to their counts on each replay
+(ops.LaunchProgram, ops.TreeProgram, runner.ScenarioProgram); the serve entries of
 the kernels line take their launches from the service's own count of
 replays.  A serve entry's ``ms`` is one event pair around back-to-back
 replays of the service's program, ``call_ms`` one replay at a time.
@@ -400,6 +429,14 @@ DRYRUN_PAIRS = tuple(
 # where the dryrun phase writes its records (the bench phase's roofline
 # reads them) and the bench phase its outputs
 DRYRUN_DIR = HERE / "experiments" / "dryrun_torch"
+# the matrix's pairs are traced on meta tensors by one process of their
+# own, started with DRYRUN_MATRIX_FROM: host work that overlaps the
+# phases from there to dryrun instead of adding to the run.  It starts
+# after the paper, cohort, width and autotune phases, whose host and
+# device times it would disturb, and beside entry_points, whose times
+# back no claim
+DRYRUN_MATRIX_FROM = "entry_points"
+DRYRUN_MATRIX_TIMEOUT_S = 900.0
 BENCH_DIR = HERE / "experiments" / "bench_torch"
 # the bench phase's kernels-line entries: launches in one event pair
 BENCH_TIMED_LAUNCHES = 10
@@ -472,6 +509,9 @@ DIST_TIMEOUT_S = 600.0
 # decode token gathers every layer again (0.66 GB sent a rank, ~2 s over
 # gloo on one card), so fewer than lm_serve's LM_SERVE_CHECKED
 FSDP_SERVE_CHECKED = 4
+# greedy tokens fsdp_serve times: a token takes ~2 s over gloo, so fewer
+# than the unsharded serve phases' LM_SERVE_TOKENS
+FSDP_SERVE_TOKENS = 8
 # Mode B's step-1 update against Mode A's on the same parameters and
 # batches: the bf16 cotangent of a gathered leaf may round to the other
 # side of a bf16 step where the two paths sum in another order, so all
@@ -579,6 +619,8 @@ class Smoke:
         self.contracts_ran = False
         self.fsdp_traffic = None   # fsdp_train's bytes sent by rank 0, a step
         self.dryrun_records = 0    # records the dryrun phase wrote (bench)
+        self.dryrun_matrix = None  # the matrix's traces, in the background
+        self.dryrun_beside: list = []  # the phases that ran beside them
 
     # -- helpers -----------------------------------------------------------
 
@@ -967,6 +1009,59 @@ class Smoke:
             raise AssertionError(f"{bad} parity cases disagree with the "
                                  "plain version")
 
+    def captured_run(self, spec):
+        """A spec's captured run held to the eager loop: runner.loop on
+        the spec's lowering, state and seed, then a miss and a hit of
+        scenarios.run (trace_spec, then one CUDA-graph replay), each a
+        main path.  Gates: the program is one captured graph; both
+        histories bit-equal to the loop's; the hit's compile_s 0.0 and
+        its launch counts the loop's, the miss's the loop's plus its
+        warm-up step.  Returns (miss, its counts, its variants, the
+        phase's numbers: compile_s, wall_clock_s of the miss and the
+        hit, the eager loop's seconds, the hit's device busy share)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import scenarios
+        from repro_torch.scenarios import runner
+        low, state, gen = runner._lowered_state(spec, self.dev)
+        t0 = time.perf_counter()
+        (_, hist), eager_counts, _ = self.main_path(
+            lambda: runner.loop(low.step_fn, state, gen, spec.num_steps))
+        eager_s = time.perf_counter() - t0
+        eager = {name: torch.stack(v).cpu().numpy()
+                 for name, v in hist.items()}
+        del low, state, gen, hist
+        runner.clear_executable_cache()
+        miss, counts, variants = self.main_path(lambda: scenarios.run(spec))
+        hit, hit_counts, _ = self.main_path(lambda: scenarios.run(spec))
+        program = runner._EXEC_CACHE[runner._exec_cache_key(spec, self.dev)]
+        assert program.captured and program.graph is not None, spec
+        assert not miss.compile_cache_hit and miss.compile_s > 0.0, miss
+        assert hit.compile_cache_hit and hit.compile_s == 0.0, hit
+        for name, want in eager.items():
+            assert np.array_equal(miss.history[name], want), \
+                (spec.label(), name, "the captured run left the eager loop")
+            assert np.array_equal(hit.history[name], want), \
+                (spec.label(), name, "a cache hit left the eager loop")
+        per_step = {kind: n // spec.num_steps
+                    for kind, n in eager_counts.items()}
+        assert hit_counts == eager_counts, (hit_counts, eager_counts)
+        assert counts == {kind: n + per_step[kind]
+                          for kind, n in eager_counts.items()}, \
+            (counts, eager_counts)
+        busy = self.not_counted(lambda: self.device_busy_share(
+            lambda: scenarios.run(spec)))
+        return miss, counts, variants, {
+            "compile_s": miss.compile_s, "miss_wall_s": miss.wall_clock_s,
+            "hit_compile_s": hit.compile_s, "hit_wall_s": hit.wall_clock_s,
+            "eager_loop_s": eager_s, "compile_split_s": program.timings,
+            "hit_device_busy_share": busy,
+            "hit_kernels": self.busy_kernels,
+            "eager_launches": eager_counts, "hit_launches": hit_counts,
+            "histories_equal_eager": True,
+            "graph_launch_records": [[p.variant or "two_pass", k, m, n]
+                                     for (p, k, m), n in program.launches]}
+
     def paper(self):
         from repro_torch import scenarios
         from repro_torch.configs import paper_lsq
@@ -981,22 +1076,12 @@ class Smoke:
                 step_size=paper_lsq.STEP_SIZE, num_steps=500, seed=0,
                 data_seed=0)
 
-        import numpy as np
-        from repro_torch.scenarios import runner
-        runner.clear_executable_cache()
-        ref, counts, variants = self.main_path(
-            lambda: scenarios.run(spec("mm_tukey", "pallas")))
+        # the C3 spec, captured, against the eager loop (a miss, a hit)
+        ref, counts, variants, ref_run = self.captured_run(
+            spec("mm_tukey", "pallas"))
         steady = ref.summary["steady_msd"]
         assert variants["warp"] == counts["single_pass"] > 0, variants
         assert steady < 1e-2, steady
-        # the runner's executable cache: the same spec again is a hit
-        # whose histories are the miss's, bit for bit
-        hit = self.not_counted(
-            lambda: scenarios.run(spec("mm_tukey", "pallas")))
-        assert not ref.compile_cache_hit and ref.compile_s > 0.0, ref
-        assert hit.compile_cache_hit and hit.compile_s == 0.0
-        assert all(np.array_equal(ref.history[h], hit.history[h])
-                   for h in ref.history), "a cache hit changed the history"
         mean = scenarios.run(spec("mean", "jnp"))
         fed_spec = scenarios.ScenarioSpec(
             paradigm="federated", num_agents=32, participation=0.5,
@@ -1004,9 +1089,19 @@ class Smoke:
             num_steps=300, attack="additive",
             attack_kwargs=(("delta", 1000.0),), aggregator="mm_tukey",
             num_malicious=6, backend="pallas")
-        fed, fcounts, fvariants = self.main_path(lambda: scenarios.run(fed_spec))
+        fed, fcounts, fvariants, fed_run = self.captured_run(fed_spec)
         assert fvariants["warp"] == fcounts["single_pass"] > 0, fvariants
         assert fed.finite(), fed.history
+        # the stacked sharded lowering: one robust aggregate of K = 32
+        # agents' gradients a step
+        sharded, scounts, svariants, sharded_run = self.captured_run(
+            scenarios.ScenarioSpec(
+                paradigm="sharded", num_agents=32, dim=10, step_size=0.05,
+                num_steps=300, attack="additive",
+                attack_kwargs=(("delta", 1000.0),), aggregator="mm_tukey",
+                num_malicious=6, backend="pallas"))
+        assert svariants["warp"] == scounts["single_pass"] > 0, svariants
+        assert sharded.finite(), sharded.history
         # one diffusion step's launch: (K, M, N) = (32, 10, 32)
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
@@ -1027,21 +1122,26 @@ class Smoke:
                      self.torch.full((kc, 1), 1.0 / kc, device=self.dev),
                      mk.launch_plan(kc, 10, 1), fcounts, fvariants,
                      weighted=False)
-        busy = self.not_counted(lambda: self.device_busy_share(
-            lambda: scenarios.run(spec("mm_tukey", "pallas"))))
+        # one stacked sharded step's launch: the 32 agents' gradients,
+        # unweighted
+        xs = self.torch.randn((32, 10), generator=g, device=self.dev)
+        xs[26:] += 1000.0
+        self.measure("mm_single_pass (stacked sharded step)",
+                     "K=32 M=10 N=1 f32", xs,
+                     self.torch.full((32, 1), 1.0 / 32, device=self.dev),
+                     mk.launch_plan(32, 10, 1), scounts, svariants,
+                     weighted=False)
         emit({"phase": "paper", "ref_steady_msd": steady,
-              "step_launch_ms": step["ms"], "ref_device_busy_share": busy,
-              "ref_launches": counts, "ref_variants": variants,
-              "ref_compile_s": ref.compile_s,
-              "ref_wall_s": ref.wall_clock_s,
-              "hit_compile_s": hit.compile_s, "hit_wall_s": hit.wall_clock_s,
-              "hit_histories_equal": True,
+              "step_launch_ms": step["ms"], "ref_launches": counts,
+              "ref_variants": variants, "ref": ref_run,
               "mean_steady_msd": mean.summary["steady_msd"],
               "mean_broke_down": mean.summary["broke_down"],
               "fed_mm_msd_at_50": float(fed.history["msd"][49]),
               "fed_mm_final_msd": fed.final_msd, "fed_launches": fcounts,
-              "fed_variants": fvariants,
-              "fed_wall_s": fed.wall_clock_s})
+              "fed_variants": fvariants, "fed": fed_run,
+              "sharded_final_msd": sharded.final_msd,
+              "sharded_launches": scounts, "sharded_variants": svariants,
+              "sharded": sharded_run})
 
     def cohort(self):
         from repro_torch import scenarios
@@ -1049,7 +1149,7 @@ class Smoke:
             paradigm="federated", aggregator="mm_tukey", backend="pallas",
             attack="additive", num_agents=1024, dim=256, num_steps=3,
             num_malicious=128, participation=0.5, seed=0)
-        res, counts, variants = self.main_path(lambda: scenarios.run(sp))
+        res, counts, variants, captured = self.captured_run(sp)
         assert counts["two_pass"] > 0, counts
         assert res.finite(), res.history
         audit = res.launch_audit
@@ -1068,7 +1168,7 @@ class Smoke:
               "call_ms": entry["call_ms"], "profiler_ms": entry["profiler_ms"],
               "profiler_kernels": entry["profiler_kernels"], "plain_ms": pms,
               "max_abs_err": err, "blocks": mk.two_pass_blocks(
-                  plan, 512, weighted=False)})
+                  plan, 512, weighted=False), "captured": captured})
 
     def qwen3_updates(self, seed: int):
         """WIDTH_AGENTS updates shaped like Qwen3-0.6B's parameter tree,
@@ -1146,6 +1246,9 @@ class Smoke:
             plain_ms += t
             err = max(err, float((est[lo:lo + chunk] - want).abs().max()))
         assert err <= 1e-5 * 1001.0, err
+        del buf, est, x, want, call, src, got
+        _ = None               # time_ms's last result: a 3.01 GB estimate
+        compiled = self._width_compiled(tree_ms)
         gbs = plan.total_bytes / (ms * 1e-3) / 1e9
         t_bytes = plan.total_bytes / HBM_BYTES_PER_S * 1e3
         t, by = bound(plan.total_bytes, mm_ops(k, m_total, 1, False))
@@ -1166,7 +1269,101 @@ class Smoke:
               "total_bytes": plan.total_bytes, "gb_per_s": gbs,
               "hbm_bound_ms": t_bytes, "hbm_bound_share": t_bytes / ms,
               "bound_ms": t, "bound_by": by, "block_m": plan.block_m,
-              "max_memory_allocated": peak})
+              "max_memory_allocated": peak, "compiled": compiled})
+
+    def _width_compiled(self, tree_ms):
+        """The tree program and leaf donation at full width: K = 8
+        Qwen3-0.6B-shaped updates (24.06 GB of leaves) made anew from the
+        same seed for each call.  aggregate_tree's estimate goes to the
+        host (3.01 GB); engine.lower_tree(tree).compile() (a warm-up and
+        a CUDA-graph capture of kernel->split) is called once as a main
+        path (one launch, from its replay) and must give that estimate
+        bit for bit; then AggregationEngine(donate_leaves=True)'s
+        aggregate_tree and tree program, each from fresh leaves: the
+        same estimate, every leaf 0 bytes afterwards.  The plain and the
+        donated aggregate_tree's max_memory_allocated are taken from
+        the same start (the leaves alone on the card, the estimate of
+        the other on the host); donation must lower the peak by at least
+        2.9 GB (the estimate's 3.01 GB).  Times: aggregate_tree and a
+        program call (stage + replay), CUDA events, median of 3."""
+        torch = self.torch
+        from repro_torch import pytree
+        from repro_torch.kernels import ops
+        gb = 1e9
+
+        def fresh_tree():
+            leaves, tree = self.qwen3_updates(0)
+            del leaves[:]
+            return tree
+
+        def peak_of(fn):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = self.not_counted(fn)
+            torch.cuda.synchronize()
+            return out, start, torch.cuda.max_memory_allocated()
+
+        def equal_to(want, out):
+            return all(torch.equal(o.cpu(), w) for o, w in
+                       zip(pytree.flatten(out)[0], want))
+
+        engine = ops.AggregationEngine()
+        tree = fresh_tree()
+        out, start_plain, peak_plain = peak_of(
+            lambda: engine.aggregate_tree(tree))
+        want = [leaf.cpu() for leaf in pytree.flatten(out)[0]]
+        del out
+        eager_ms = self.not_counted(
+            lambda: self.time_ms(lambda: engine.aggregate_tree(tree)))[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        program = self.not_counted(lambda: engine.lower_tree(tree).compile())
+        compile_s = time.perf_counter() - t0
+        out, counts, variants = self.main_path(lambda: program(tree))
+        program_peak = torch.cuda.max_memory_allocated()
+        assert counts == {"single_pass": 1, "two_pass": 0}, counts
+        assert variants["regs"] == 1 and program.graph is not None, variants
+        assert equal_to(want, out), "the tree program left aggregate_tree"
+        program_ms = self.not_counted(
+            lambda: self.time_ms(lambda: program(tree)))[0]
+        del out, program, tree
+
+        donating = ops.AggregationEngine(donate_leaves=True)
+        tree = fresh_tree()
+        out, start_donated, peak_donated = peak_of(
+            lambda: donating.aggregate_tree(tree))
+        held = [leaf.untyped_storage().nbytes()
+                for leaf in pytree.flatten(tree)[0]]
+        assert equal_to(want, out), "donation changed the estimate"
+        assert not any(held), held
+        del out, tree
+        tree = fresh_tree()
+        program = self.not_counted(
+            lambda: donating.lower_tree(tree).compile())
+        assert all(donating.lower_tree(tree).donated)
+        out = self.not_counted(lambda: program(tree))
+        held_program = [leaf.untyped_storage().nbytes()
+                        for leaf in pytree.flatten(tree)[0]]
+        assert equal_to(want, out), "the donated program left aggregate_tree"
+        assert not any(held_program), held_program
+        del out, program, tree, want
+        torch.cuda.empty_cache()
+        drop = peak_plain - peak_donated
+        assert abs(start_donated - start_plain) < 0.01 * gb, \
+            (start_plain, start_donated)
+        assert drop >= 2.9 * gb, (peak_plain, peak_donated)
+        return {"tree_ms_host": tree_ms, "aggregate_tree_ms": eager_ms,
+                "program_compile_s": compile_s, "program_ms": program_ms,
+                "program_launches": counts, "program_equal": True,
+                "program_peak": program_peak,
+                "start_plain": start_plain, "start_donated": start_donated,
+                "max_memory_allocated_plain": peak_plain,
+                "max_memory_allocated_donated": peak_donated,
+                "peak_drop": drop, "donated_equal": True,
+                "donated_leaf_bytes": sum(held) + sum(held_program)}
 
     def batch(self):
         torch = self.torch
@@ -2495,7 +2692,7 @@ class Smoke:
             shutil.rmtree(tmp, ignore_errors=True)
         for rk in ranks:
             emit(dict(rk, phase="fsdp_serve", batch=DIST_K,
-                      prompt=LM_SERVE_PROMPT, generated=LM_SERVE_TOKENS))
+                      prompt=LM_SERVE_PROMPT, generated=FSDP_SERVE_TOKENS))
         for rk in ranks:
             assert rk["prefill_max_err"] <= rk["tol"], rk
             assert max(rk["decode_vs_mode_a_max_err"]) <= rk["tol"], rk
@@ -2523,8 +2720,11 @@ class Smoke:
         emit({"phase": "dryrun_left_out", "pairs": left,
               "why": DRYRUN_LEFT_OUT_WHY})
         t0 = time.perf_counter()
-        for arch, shape in DRYRUN_PAIRS:
-            rec = D.trace_pair(arch, shape)
+        traced, matrix_s = self.dryrun_matrix.get(
+            timeout=DRYRUN_MATRIX_TIMEOUT_S)
+        matrix_wait_s = time.perf_counter() - t0
+        for (arch, shape), rec, err in traced:
+            assert err is None, (arch, shape, err)
             # the bench phase's roofline reads them
             D.write_record(str(DRYRUN_DIR), rec)
             self.dryrun_records += 1
@@ -2542,7 +2742,7 @@ class Smoke:
                                     for c in rec["collectives"].values()),
                   "mm_launches": rec["mm_launch_count"],
                   "fits_80gb": rec["fits_80gb"]})
-        matrix_s = time.perf_counter() - t0
+        matrix_trace_sum_s = sum(rec["trace_s"] for _, rec, _ in traced)
 
         # Qwen3-0.6B Mode A: the card's step against its meta trace
         cfg = configs.load_arch("qwen3-0.6b").model
@@ -2643,6 +2843,9 @@ class Smoke:
             assert {k: n for k, n in t.items() if n} == sent, (t, sent)
         emit({"phase": "dryrun", "pairs": len(DRYRUN_PAIRS),
               "left_out": len(left), "matrix_s": matrix_s,
+              "matrix_wait_s": matrix_wait_s,
+              "matrix_trace_sum_s": matrix_trace_sum_s,
+              "matrix_beside_phases": self.dryrun_beside,
               "qwen3_mode_a_gates": list(gates), "mode_b_gate": "sent_bytes"})
 
     # -- the benchmarks ------------------------------------------------------
@@ -2693,10 +2896,25 @@ class Smoke:
         files = {kind: str(BENCH_DIR / f"BENCH_{kind}_torch.json")
                  for kind in ("agg", "large_cohort", "serve")}
 
-        # the paper's Fig. 1 at its size: K = 32, d = 10, 1000 iterations
-        rc, out, counts, _, fig1_s = self._bench_step(
-            "paper_fig1", lambda: paper_fig1.main(
-                ["--iters", "1000", "--device", dev]))
+        # the paper's Fig. 1 at its size: K = 32, d = 10, 1000 iterations;
+        # every run_diffusion compiles its trajectory (the spy records
+        # whether each program was captured as one CUDA graph)
+        from repro_torch.scenarios import runner
+        compile_trajectory, captured = runner.compile_trajectory, []
+
+        def spy(*args, **kw):
+            program = compile_trajectory(*args, **kw)
+            captured.append(program.captured)
+            return program
+
+        runner.compile_trajectory = spy
+        try:
+            rc, out, counts, _, fig1_s = self._bench_step(
+                "paper_fig1", lambda: paper_fig1.main(
+                    ["--iters", "1000", "--device", dev]))
+        finally:
+            runner.compile_trajectory = compile_trajectory
+        assert captured and all(captured), captured
         steady, claims = {}, {}
         lines = out.splitlines()
         for line in lines[1:-1]:
@@ -2711,7 +2929,7 @@ class Smoke:
         emit({"phase": "bench_fig1", "rc": rc, "claims": claims,
               "c3_clean_ratios": ratios, "steady_msd": steady,
               "settings": len(steady), "seconds": fig1_s,
-              "launches": counts})
+              "captured_trajectories": len(captured), "launches": counts})
         assert rc == 0 and len(claims) == 3 and \
             set(claims.values()) == {"PASS"}, claims
         assert len(steady) == 33 and all(math.isfinite(v)
@@ -3125,7 +3343,7 @@ def _fsdp_serve_rank(mesh, ref_path, prompt):
     """One agent of fsdp_serve: its shards of the seeded model serve its
     row of the prompt: a timed prefill, decode logits teacher-forced on
     Mode A's greedy tokens (FSDP_SERVE_CHECKED positions), then
-    LM_SERVE_TOKENS greedy tokens through the step, timed."""
+    FSDP_SERVE_TOKENS greedy tokens through the step, timed."""
     torch, smoke = _rank_setup()
     import torch.distributed as dist
     from repro_torch import configs
@@ -3160,17 +3378,17 @@ def _fsdp_serve_rank(mesh, ref_path, prompt):
             errs.append(float((logits[0, 0, :v].float()
                                - ref["logits"][r, t].to(dev)).abs().max()))
     decode = steps.make_decode_step(cfg, "cuda", fsdp=True, mesh=mesh)
-    cache = M.init_cache(cfg, 1, LM_SERVE_TOKENS, device="cuda")
+    cache = M.init_cache(cfg, 1, FSDP_SERVE_TOKENS, device="cuda")
     dist.barrier()
     torch.cuda.synchronize()
     sent = sum(sharded.TRAFFIC.values())
     t0 = time.perf_counter()
     tok, out = toks[:, :1], []
-    for _ in range(LM_SERVE_TOKENS):
+    for _ in range(FSDP_SERVE_TOKENS):
         tok, cache = decode(local, tok, cache)
         out.append(tok)
     torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_SERVE_TOKENS
+    decode_ms = (time.perf_counter() - t0) * 1e3 / FSDP_SERVE_TOKENS
     gen = torch.cat(out, dim=1).cpu()
     return {"rank": r, "prefill_ms": prefill_ms, "prefill_max_err": prefill_err,
             "prefill_sent_bytes": prefill_sent,
@@ -3178,10 +3396,22 @@ def _fsdp_serve_rank(mesh, ref_path, prompt):
             "tol": LM_SERVE_TOL * max(1.0, float(ref["logits"][r].abs().max())),
             "decode_ms_per_token": decode_ms,
             "decode_sent_bytes_per_token":
-                (sum(sharded.TRAFFIC.values()) - sent) // LM_SERVE_TOKENS,
-            "greedy_tokens_as_mode_a": int((gen[0] == ref["tokens"][r]).sum()),
+                (sum(sharded.TRAFFIC.values()) - sent) // FSDP_SERVE_TOKENS,
+            "greedy_tokens_as_mode_a": int(
+                (gen[0] == ref["tokens"][r, :FSDP_SERVE_TOKENS]).sum()),
             "generated_head": gen[0, :8].tolist(), "vocab": v,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _dryrun_matrix(pairs):
+    """The dry run's DRYRUN_PAIRS on meta tensors, one after another, in
+    a process of their own: ([((arch, shape), record, error)], the wall
+    seconds from the first trace to the last)."""
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    traced = [D._traced((arch, shape, False, None, D.AGENT_RANKS))
+              for arch, shape in pairs]
+    return traced, time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -3203,17 +3433,31 @@ def main(argv=None) -> int:
     smoke = Smoke(torch, args)
     seconds = {}
     t_all = time.perf_counter()
-    for phase in PHASES:
-        if phase in args.phases:
-            t0 = time.perf_counter()
-            if phase in LM_TRAIN_RUNS:
-                smoke.lm_train_run(phase)
-            elif phase in LM_SERVE_RUNS:
-                smoke.lm_serve_run(phase)
-            else:
-                getattr(smoke, phase)()
-            seconds[phase] = time.perf_counter() - t0
-            emit({"phase_seconds": phase, "seconds": seconds[phase]})
+    pool = None
+    try:
+        for phase in PHASES:
+            if phase in args.phases:
+                if pool is None and "dryrun" in args.phases and \
+                        PHASES.index(phase) >= PHASES.index(DRYRUN_MATRIX_FROM):
+                    pool = torch.multiprocessing.get_context("spawn").Pool(1)
+                    smoke.dryrun_matrix = pool.apply_async(
+                        _dryrun_matrix, (DRYRUN_PAIRS,))
+                if pool is not None and phase != "dryrun" \
+                        and not smoke.dryrun_matrix.ready():
+                    smoke.dryrun_beside.append(phase)
+                t0 = time.perf_counter()
+                if phase in LM_TRAIN_RUNS:
+                    smoke.lm_train_run(phase)
+                elif phase in LM_SERVE_RUNS:
+                    smoke.lm_serve_run(phase)
+                else:
+                    getattr(smoke, phase)()
+                seconds[phase] = time.perf_counter() - t0
+                emit({"phase_seconds": phase, "seconds": seconds[phase]})
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t_all})
     smoke.kernels_line()

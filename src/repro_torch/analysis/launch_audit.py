@@ -1,19 +1,21 @@
 """Launch audit: the invariants of ``repro.analysis.jaxpr_audit``, checked
 on what runs.
 
-The reference traces its programs to jaxprs and counts equations; eager
-PyTorch has no program to trace, so this pass runs the real entry points
--- ``AggregationEngine.aggregate`` / ``aggregate_batched`` /
-``aggregate_tree``, one step of the scenario runner's lowering, and a
-small streaming service -- on the current device and checks what they
-launched:
+The reference traces its programs to jaxprs and counts equations; the
+port runs the real entry points -- ``AggregationEngine.aggregate`` /
+``aggregate_batched`` / ``aggregate_tree`` and its tree program, one
+step of the scenario runner's lowering and the replay of its compiled
+trajectory (``runner.trace_spec``), and a small streaming service -- on
+the current device and checks what they launched and released:
 
   launch-count    exactly one MM kernel launch per engine call (one
-                  tree layout) and per scenario step.  On the CPU the
-                  launches are the wrappers' ``mm_aggregate.record_calls``
-                  (the plain versions run where the kernels would
-                  launch); on the card torch.profiler counts the kernels
-                  by name.
+                  tree layout) and per scenario step, and num_steps x
+                  layouts in one replay of a compiled trajectory (on the
+                  card, one CUDA graph of the whole trajectory).  On the
+                  CPU the launches are the wrappers'
+                  ``mm_aggregate.record_calls`` (the plain versions run
+                  where the kernels would launch); on the card
+                  torch.profiler counts the kernels by name.
   host-sync       (card only; the reference's ``callback``) the steady
                   engine call and the scenario step run under
                   ``torch.cuda.set_sync_debug_mode("error")`` without a
@@ -22,16 +24,20 @@ launched:
                   recorded call's x operand and output), and the tree
                   path hands the kernel its staging buffer
                   (``ops.stage_leaves``) as it is, with no second cast.
+  donation        ``donate_leaves=True`` reaches the tree program: every
+                  flag of ``LoweredTree.donated`` is set with it and none
+                  without (``lower_tree/donated``, ``lower_tree/plain``,
+                  the reference's names), and after a call of
+                  ``aggregate_tree`` or of the compiled tree program the
+                  donated leaves, and only they, hold no storage.
   serve-retrace   a steady service session captures its launch program
                   once and hits the executable cache on every later
                   cohort; N tenants sharing one ``ExecutableCache``
                   capture once per distinct geometry, never once per
                   tenant.
 
-The reference's ``donation`` rule has no counterpart yet: the port has
-no ``lower_tree`` or leaf donation.  Every launch the audit makes runs
-inside ``mm_aggregate.uncounted()``, so the launch counts are left as
-they were.
+Every launch the audit makes runs inside ``mm_aggregate.uncounted()``,
+so the launch counts are left as they were.
 """
 
 from __future__ import annotations
@@ -213,6 +219,52 @@ def check_tree_stream(engine, device: Optional[torch.device] = None
     return []
 
 
+def check_donation(donating=None, plain=None,
+                   device: Optional[torch.device] = None) -> List[Finding]:
+    """The reference's donation rule on the tree program: the flags of
+    ``lower_tree(tree).donated`` and the leaves a call released, through
+    ``aggregate_tree`` and through the compiled program.  ``donating``
+    and ``plain`` override the two engines (the mutation tests inject
+    broken ones)."""
+    dev = audit_device() if device is None else device
+    engines = ((donating or _engine(donate_leaves=True), True,
+                "lower_tree/donated"),
+               (plain or _engine(), False, "lower_tree/plain"))
+
+    def tree():
+        return {"w": torch.zeros((8, 32), device=dev),
+                "b": torch.zeros((8, 7, 3), device=dev)}
+
+    out: List[Finding] = []
+    for engine, want, where in engines:
+        flags = list(engine.lower_tree(tree()).donated)
+        if flags != [want] * 2:
+            out.append(Finding(
+                rule="donation", path="engine", where=where,
+                detail=f"donate_leaves={want} but the lowered tree program "
+                       f"marks donated={flags}" + (
+                           ": the leaf buffers are not handed to the "
+                           "staging copy" if want else
+                           ": the program would release caller-held "
+                           "gradient buffers")))
+        calls = (("aggregate_tree", engine.aggregate_tree),
+                 ("program", lambda t: engine.lower_tree(t).compile()(t)))
+        for name, call in calls:
+            leaves = tree()
+            with mk.uncounted():
+                call(leaves)
+            released = sorted(k for k, v in leaves.items()
+                              if v.untyped_storage().nbytes() == 0)
+            if released != (sorted(leaves) if want else []):
+                out.append(Finding(
+                    rule="donation", path="engine", where=where,
+                    detail=f"after a call of {name} the leaves "
+                           f"{released} of {sorted(leaves)} hold no "
+                           f"storage (donate_leaves={want})",
+                    ident=name))
+    return out
+
+
 def scenario_specs():
     """Tiny kernel-backend specs covering the linear steady paths."""
     from repro_torch.scenarios.spec import ScenarioSpec
@@ -229,7 +281,10 @@ def scenario_specs():
 def check_scenarios(specs=None, device: Optional[torch.device] = None
                     ) -> List[Finding]:
     """One step of each spec's lowering (the runner's step function on
-    its initial state): one launch per engine layout the step resolves."""
+    its initial state): one launch per engine layout the step resolves;
+    then one replay of the spec's compiled trajectory
+    (``runner.trace_spec``; on the card one CUDA graph): num_steps x
+    layouts launches."""
     from repro_torch.kernels import ops
     from repro_torch.scenarios import runner
     dev = audit_device() if device is None else device
@@ -248,6 +303,18 @@ def check_scenarios(specs=None, device: Optional[torch.device] = None
         out.extend(audit_launches(
             lambda: low.step_fn(state, gen, 1), path="scenario",
             where=spec.label(), expect=max(len(layouts), 1), device=dev))
+        with mk.uncounted():
+            program, _ = runner.trace_spec(spec, device=dev)
+        want = spec.num_steps * max(len(layouts), 1)
+        n, _ = count_launches(lambda: program.replay(seed=spec.seed), dev)
+        program.release()
+        if n != want:
+            out.append(Finding(
+                rule="launch-count", path="scenario",
+                where=spec.label() + "/trajectory",
+                detail=f"one replay of the compiled trajectory made {n} MM "
+                       f"kernel launch(es), expected {want} (num_steps x "
+                       "layouts)", ident="trajectory"))
     return out
 
 
@@ -374,5 +441,5 @@ def check_serve_multitenant(front=None) -> List[Finding]:
 
 def check_all() -> List[Finding]:
     """The launch pass, on the card where there is one."""
-    return (check_engine() + check_scenarios() + check_serve()
-            + check_serve_multitenant())
+    return (check_engine() + check_donation() + check_scenarios()
+            + check_serve() + check_serve_multitenant())

@@ -98,10 +98,12 @@ def krum(x: torch.Tensor, a: Optional[torch.Tensor] = None,
                                     device=sq.device))
     n_near = max(k - num_malicious - 2, 1)
     scores = torch.sum(torch.sort(sq, dim=1).values[:, :n_near], dim=1)
+    # index_select, not x[tensor]: a 0-d index tensor would be read on
+    # the host, which a CUDA graph capture refuses
     if multi <= 1:
-        return x[torch.argmin(scores)]
+        return torch.index_select(x, 0, torch.argmin(scores).reshape(1))[0]
     sel = torch.argsort(scores)[:multi]
-    return torch.mean(x[sel], dim=0)
+    return torch.mean(torch.index_select(x, 0, sel), dim=0)
 
 
 def m_huber(x: torch.Tensor, a: Optional[torch.Tensor] = None,

@@ -46,9 +46,23 @@ def local_update(w0: torch.Tensor, client_idx: torch.Tensor,
     return w
 
 
+def client_weight_tensor(config: FederatedConfig, dtype=torch.float32,
+                         device="cpu") -> Optional[torch.Tensor]:
+    """``config.client_weights`` as a (K,) tensor (None without them)."""
+    if config.client_weights is None:
+        return None
+    return torch.as_tensor(config.client_weights, dtype=dtype, device=device)
+
+
 def federated_round(w: torch.Tensor, generator: torch.Generator, *,
                     grad_fn: ClientGradFn, config: FederatedConfig,
-                    step: int = 0) -> torch.Tensor:
+                    step: int = 0,
+                    client_weights: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """One round from server model ``w``.  ``client_weights`` is
+    ``config.client_weights`` already on w's device
+    (``client_weight_tensor``), which a loop builds once; without it a
+    round copies them from the host."""
     perm = torch.randperm(config.num_clients, generator=generator,
                           device=w.device)
     chosen = perm[:config.clients_per_round]                        # (N,)
@@ -64,10 +78,9 @@ def federated_round(w: torch.Tensor, generator: torch.Generator, *,
         phis = fn(phis, mask, generator, step)
     agg = aggregators.get_aggregator(config.aggregator,
                                      **dict(config.agg_kwargs))
-    a = None
-    if config.client_weights is not None:
-        a = torch.as_tensor(config.client_weights, dtype=phis.dtype,
-                            device=w.device)[chosen]
+    if client_weights is None:
+        client_weights = client_weight_tensor(config, phis.dtype, w.device)
+    a = None if client_weights is None else client_weights[chosen]
     return agg(phis, a)
 
 

@@ -85,7 +85,13 @@ def _regressors(mix, idx, rows, dim, gen, dtype, device):
     if mix is None:
         return u
     pi, scales = mix
-    comp = torch.multinomial(pi[idx], 1, generator=gen)[:, 0]
+    # torch.multinomial's one-sample draw (an exponential race), written
+    # out: it draws the same values from the generator, without the
+    # host-side checks of the probabilities that a CUDA graph capture
+    # refuses
+    p = pi[idx]
+    race = torch.empty_like(p).exponential_(1, generator=gen)
+    comp = torch.argmax(p / race, dim=-1)
     return u * scales[comp].to(dtype)[:, None]
 
 

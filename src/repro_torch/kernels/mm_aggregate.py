@@ -106,6 +106,8 @@ LAUNCHES_BY_VARIANT = {v: 0 for v in SINGLE_PASS_VARIANTS}
 LAUNCHES_BY_SHAPE: dict = {}
 # the lists of the open record_calls() scopes
 _CALL_RECORDERS: list = []
+# the lists of the open record_captured() scopes
+_CAPTURE_RECORDERS: list = []
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -723,6 +725,13 @@ def count_launch(plan: LaunchPlan, k: int, m: int, n: int = 1) -> None:
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
 
 
+def count_replay(launches) -> None:
+    """Add one graph replay's launches, ((plan, k, m), count) pairs from
+    its capture (``record_captured``), to the counts."""
+    for (plan, k, m), n in launches:
+        count_launch(plan, k, m, n)
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches made inside the scope (a timing sweep, a comparison)
@@ -737,11 +746,32 @@ def uncounted():
             c.update(old)
 
 
+@contextlib.contextmanager
+def record_captured():
+    """Collect the (plan, K, M) of every kernel launch a wrapper makes
+    inside the scope while a CUDA graph captures the stream: the
+    launches each replay of that graph makes.  The wrappers do not count
+    them; the program that replays the graph adds them to the counts
+    (``count_launch``) once per replay."""
+    records: list = []
+    _CAPTURE_RECORDERS.append(records)
+    try:
+        yield records
+    finally:
+        for i, r in enumerate(_CAPTURE_RECORDERS):
+            if r is records:
+                del _CAPTURE_RECORDERS[i]
+                break
+
+
 def _count_launch(plan: LaunchPlan, k: int, m: int) -> None:
     # a launch made while a CUDA graph captures the stream runs only when
-    # the graph replays; the launch program counts it there
-    # (ops.LaunchProgram.replay)
-    if not torch.cuda.is_current_stream_capturing():
+    # the graph replays; the program that replays it counts it there
+    # (ops.LaunchProgram, ops.TreeProgram, runner.ScenarioProgram)
+    if torch.cuda.is_current_stream_capturing():
+        for records in _CAPTURE_RECORDERS:
+            records.append((plan, k, m))
+    else:
         count_launch(plan, k, m)
 
 

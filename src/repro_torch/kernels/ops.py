@@ -13,20 +13,50 @@ Tree path: every leaf is copied into one preallocated (K, M_total) f32
 staging buffer, one kernel launch aggregates it, and the (M_total,)
 estimate is split back into views shaped like the leaves, cast to each
 leaf's dtype.  The kernel masks its ragged last tile, so the staging
-buffer is the only copy of the tree that the launch makes.
+buffer is the only copy of the tree that the launch makes.  The layout
+(treedef, shapes, dtypes, per-leaf sizes and offsets, K) is computed
+once per tree structure and cached on the engine (``_TreeLayout``,
+``engine._layouts``), as the reference caches it.
+
+Donation: with ``donate_leaves=True`` the tree path hands the leaves
+over to the aggregation.  Each leaf's storage is released
+(``untyped_storage().resize_(0)``) as soon as it is staged, before the
+kernel and the split allocate, and the leaf becomes a ``DonatedTensor``,
+whose reads raise, as a re-read of a donated buffer raises in jax.  A
+leaf whose storage another leaf still needs is released only after the
+last of them is staged.  A leaf whose storage torch does not own (a
+numpy array's) cannot be released, and the call raises ``ValueError``
+before it stages anything.  The estimate is the plain path's, bit for
+bit; the peak is lower by the estimate's bytes.
+
+Compiled programs.  On a CUDA device "compile" means "capture a CUDA
+graph" and "execute" means "replay it"; on the CPU the same objects run
+the engine's eager code (the kernels' plain versions).
+
+- ``lower_launch(k, m, dtype).compile()`` gives a ``LaunchProgram``, the
+  launch half of ``aggregate`` for one fixed cohort geometry (the
+  streaming service assembles cohorts itself): a static (k, m) cohort
+  buffer and (k,) weight buffer, one capture per geometry, each cohort
+  copied in and replayed.
+- ``lower_tree(tree, a).compile()`` gives a ``TreeProgram``, the
+  counterpart of the reference's jitted stage->kernel->split program of
+  one tree layout: a static (K, M_total) staging buffer and weights,
+  static outputs shaped like the leaves; each call stages a tree of that
+  layout (donating its leaves where the engine does) and replays the
+  captured kernel->split.  ``LoweredTree.donated`` mirrors the donated
+  flags of the reference's ``Lowered.args_info``.
+
+Both warm up once on a side stream before the capture (it loads the
+kernel library, opts the kernel in to its shared memory and asks its
+occupancy, none of which may happen during a capture); ``capture_graph``
+and ``warm_up`` are shared with the scenario runner, which captures
+whole trajectories.  The wrappers do not count a launch made while a
+graph captures; a program adds its graph's launches to their counts on
+every replay.
 
 Inside a ``record_workloads()`` scope every launch appends its resolved
 workload (K, M, N, dtype, backend, block sizes, path) once; the scenario
 runner builds its launch audit from those records.
-
-Standalone launches (``lower_launch``): the launch half of ``aggregate``
-for one fixed cohort geometry, with cohort assembly left to the caller
-(the streaming service).  ``lower_launch(k, m, dtype).compile()`` gives
-a ``LaunchProgram``: on a CUDA device the launch is warmed up once and
-captured into a CUDA graph over a static (k, m) cohort buffer and a
-(k,) weight buffer, and every call copies a cohort into them and
-replays the graph -- one capture per geometry, no per-cohort host work
-in the launch.  ``lower_tree`` and leaf donation are not ported yet.
 
 ``autotune=True`` runs ``tuning.autotune``'s sweep the first time the
 engine meets a (K, M, N, dtype) on a device (never while a CUDA graph
@@ -36,9 +66,10 @@ measured winner's.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -73,6 +104,98 @@ def _record_workload(entry: dict) -> None:
             records.append(dict(entry))
 
 
+# ---------------------------------------------------------------------------
+# donation
+# ---------------------------------------------------------------------------
+
+class DonatedTensor(torch.Tensor):
+    """A leaf the tree path has taken over (``donate_leaves=True``): its
+    storage is released and every read of its values raises.  Its
+    shape, dtype, device and (empty) storage stay readable."""
+
+    _METADATA = frozenset((
+        torch.Tensor.size, torch.Tensor.dim, torch.Tensor.numel,
+        torch.Tensor.untyped_storage, torch.Tensor.shape.__get__,
+        torch.Tensor.dtype.__get__, torch.Tensor.device.__get__,
+        torch.Tensor.ndim.__get__, torch.Tensor.requires_grad.__get__,
+        torch.Tensor.is_cuda.__get__))
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func in cls._METADATA:
+            with torch._C.DisableTorchFunctionSubclass():
+                return func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", str(func))
+        raise RuntimeError(
+            f"{name}: this tensor was donated to a tree aggregation "
+            "(donate_leaves=True) and its storage has been released")
+
+    def __repr__(self):
+        return (f"DonatedTensor(shape={tuple(self.shape)}, "
+                f"dtype={self.dtype}, device={self.device}, released)")
+
+
+def _storage_key(leaf: torch.Tensor) -> tuple:
+    return (str(leaf.device), leaf.untyped_storage().data_ptr())
+
+
+def _donate(leaf: torch.Tensor) -> None:
+    """Release a staged leaf's storage and mark it donated."""
+    if isinstance(leaf, DonatedTensor):
+        return
+    leaf.untyped_storage().resize_(0)
+    leaf.__class__ = DonatedTensor
+
+
+def _check_donatable(leaves) -> None:
+    """Raise ``ValueError`` before anything is staged when a leaf's
+    storage cannot be released (storage torch does not own, a numpy
+    array's): donating it would free nothing."""
+    for i, leaf in enumerate(leaves):
+        if not leaf.untyped_storage().resizable():
+            raise ValueError(
+                f"leaf {i} (shape {tuple(leaf.shape)}) cannot be donated: "
+                "its storage is not torch's own (torch.from_numpy?) and "
+                "cannot be released; copy it or use donate_leaves=False")
+
+
+def _layout_key(leaves, treedef) -> tuple:
+    return (treedef, tuple(tuple(leaf.shape) for leaf in leaves),
+            tuple(leaf.dtype for leaf in leaves))
+
+
+class _TreeLayout:
+    """Cached flatten plan for one pytree structure."""
+
+    __slots__ = ("treedef", "shapes", "dtypes", "sizes", "offsets", "k")
+
+    def __init__(self, treedef, leaves):
+        self.treedef = treedef
+        self.k = leaves[0].shape[0]
+        self.shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+        self.dtypes = tuple(leaf.dtype for leaf in leaves)
+        self.sizes = tuple(leaf.numel() // max(self.k, 1) for leaf in leaves)
+        offs, off = [], 0
+        for n in self.sizes:
+            offs.append(off)
+            off += n
+        self.offsets = tuple(offs)
+
+    @property
+    def m_total(self) -> int:
+        return sum(self.sizes)
+
+    def key(self):
+        return (self.treedef, self.shapes, self.dtypes)
+
+    def split(self, agg: torch.Tensor) -> list:
+        """The (M_total,) estimate as views shaped like the leaves, each
+        cast to its leaf's dtype."""
+        return [agg[off:off + n].reshape(shape[1:]).to(dtype)
+                for off, n, shape, dtype in zip(self.offsets, self.sizes,
+                                                self.shapes, self.dtypes)]
+
+
 class AggregationEngine:
     """Weighted, batched MM aggregation around the Hopper kernels.
 
@@ -80,9 +203,10 @@ class AggregationEngine:
     ``mm_aggregate.launch_plan`` (the tuning cache or its heuristic, and
     ``auto_path``); ``autotune=True`` first times the candidates of a
     workload the engine has not met (outside CUDA-graph capture, where
-    the cache or heuristic decides).  The engine runs on whatever device
-    its inputs are on: CUDA tensors launch the kernels, CPU tensors take
-    their plain versions.
+    the cache or heuristic decides).  ``donate_leaves=True`` makes the
+    tree path take over the leaves it stages (module docstring).  The
+    engine runs on whatever device its inputs are on: CUDA tensors
+    launch the kernels, CPU tensors take their plain versions.
     """
 
     def __init__(self, *, num_iters: int = 10,
@@ -91,6 +215,7 @@ class AggregationEngine:
                  block_k: Optional[int] = None,
                  backend: str = "pallas",
                  autotune: bool = False,
+                 donate_leaves: bool = False,
                  path: Optional[str] = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
@@ -102,7 +227,9 @@ class AggregationEngine:
         self.block_k = block_k
         self.backend = backend
         self.autotune = autotune
+        self.donate_leaves = donate_leaves
         self.path = path
+        self._layouts: dict = {}
 
     def _plan(self, k: int, m: int, n: int = 1, dtype=torch.float32):
         """The launch plan of a (k, m) x (k, n) launch of this engine (None
@@ -171,18 +298,38 @@ class AggregationEngine:
 
     # -- pytrees -----------------------------------------------------------
 
+    def _layout_for(self, leaves, treedef) -> _TreeLayout:
+        # unbounded, as the reference's: one entry per tree structure
+        key = _layout_key(leaves, treedef)
+        layout = self._layouts.get(key)
+        if layout is None:
+            layout = self._layouts[key] = _TreeLayout(treedef, leaves)
+        return layout
+
     def aggregate_tree(self, tree, a: Optional[torch.Tensor] = None):
-        """Aggregate a pytree of stacked (K, ...) leaves in ONE launch."""
+        """Aggregate a pytree of stacked (K, ...) leaves in ONE launch:
+        stage into the cached layout, launch, split.  With
+        ``donate_leaves`` the leaves are released as they are staged."""
         leaves, treedef = pytree.flatten(tree)
         if not leaves:
             return tree
-        agg = self.aggregate(stage_leaves(leaves), a)
-        outs, off = [], 0
-        for leaf in leaves:
-            n = leaf[0].numel()
-            outs.append(agg[off:off + n].reshape(leaf.shape[1:]).to(leaf.dtype))
-            off += n
-        return pytree.unflatten(treedef, outs)
+        layout = self._layout_for(leaves, treedef)
+        buf = stage_leaves(leaves, layout=layout, donate=self.donate_leaves)
+        return pytree.unflatten(treedef, layout.split(self.aggregate(buf, a)))
+
+    def lower_tree(self, tree, a: Optional[torch.Tensor] = None
+                   ) -> "LoweredTree":
+        """The stage->kernel->split program ``aggregate_tree`` runs for
+        this tree's layout, with this engine's donation setting, not yet
+        compiled or run (a weighted program when ``a`` is given)."""
+        leaves, treedef = pytree.flatten(tree)
+        if not leaves:
+            raise ValueError("an empty tree has no tree program")
+        dev = leaves[0].device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return LoweredTree(self, self._layout_for(leaves, treedef),
+                           weighted=a is not None, device=dev)
 
     # -- standalone launches (cohort assembly decoupled) -------------------
 
@@ -231,6 +378,7 @@ class LaunchProgram:
         self.plan = plan
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
+        self.launches: tuple = ()      # ((plan, k, m), launches a replay)
         self.replays = 0
 
     def stage(self, rows, a: Optional[torch.Tensor] = None) -> None:
@@ -252,8 +400,7 @@ class LaunchProgram:
         else:
             self.graph.replay()
             out = self.out
-            if self.plan is not None:
-                _k.count_launch(self.plan, *self.x.shape)
+            _k.count_replay(self.launches)
         self.replays += 1
         return out
 
@@ -301,31 +448,168 @@ class LoweredLaunch:
                                 engine._plan(self.k, self.m, 1, self.dtype))
         if self.device.type != "cuda":
             return program
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            program._launch()
-        current.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = program._launch()
-        program.graph, program.out = graph, out
+        warm_up(program._launch, self.device)
+        program.graph, program.out, program.launches = capture_graph(
+            program._launch)
         return program
 
 
-def stage_leaves(leaves) -> torch.Tensor:
-    """Copy stacked (K, ...) leaves into one preallocated (K, M_total) f32
-    buffer, leaf after leaf along M (the tree path's staging layout)."""
-    k = leaves[0].shape[0]
-    sizes = [leaf.numel() // k for leaf in leaves]
-    buf = torch.empty((k, sum(sizes)), dtype=torch.float32,
-                      device=leaves[0].device)
-    off = 0
-    for leaf, n in zip(leaves, sizes):
+class TreeProgram:
+    """A compiled tree aggregation (``AggregationEngine.lower_tree``).
+
+    Its static inputs are the (K, M_total) f32 staging buffer ``x`` and,
+    for a weighted program, the (K,) weights ``a``; its static outputs
+    are views shaped like the leaves.  ``program(tree, a)`` stages the
+    leaves into ``x`` as ``stage_leaves`` does (releasing each one as it
+    is staged when the engine donates leaves), copies ``a`` and replays
+    the kernel->split program, returning a tree of the outputs.  A tree
+    of another layout raises ``ValueError``.  On a CUDA device the
+    program is a captured CUDA graph and the returned tree holds the
+    graph's own output tensors, overwritten by the next replay of this
+    program: a caller that keeps them clones them first.  Each replay
+    adds the graph's kernel launch to the wrappers' counts
+    (``mm_aggregate.LAUNCHES`` and the rest).  On the CPU the program
+    runs the engine's launch and split (the kernels' plain versions) on
+    the static inputs.
+    """
+
+    def __init__(self, lowered: "LoweredTree", x: torch.Tensor,
+                 a: Optional[torch.Tensor], run: Callable[[], list]):
+        self.layout = lowered.layout
+        self.donate = lowered.engine.donate_leaves
+        self.x = x
+        self.a = a
+        self._run = run
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Optional[list] = None
+        self.launches: tuple = ()      # ((plan, k, m), launches a replay)
+        self.replays = 0
+
+    def stage(self, tree, a: Optional[torch.Tensor] = None) -> None:
+        """Copy the tree's leaves (and the weights) into the static
+        inputs, donating the leaves where the engine does."""
+        leaves, treedef = pytree.flatten(tree)
+        if _layout_key(leaves, treedef) != self.layout.key():
+            raise ValueError(
+                "the tree program was lowered for another tree layout: "
+                f"shapes {self.layout.shapes}, dtypes {self.layout.dtypes}")
+        if leaves[0].device != self.x.device:
+            raise ValueError(f"the tree program runs on {self.x.device}, "
+                             f"the leaves are on {leaves[0].device}")
+        if (a is None) != (self.a is None):
+            raise ValueError("a weighted tree program takes weights a (K,), "
+                             "an unweighted one none")
+        stage_leaves(leaves, self.x, layout=self.layout, donate=self.donate)
+        if a is not None:
+            self.a.copy_(a.reshape(-1))
+
+    def replay(self) -> list:
+        """Run kernel->split on the staged inputs; the outputs in leaf
+        order.  Asynchronous on the card."""
+        if self.graph is None:
+            outs = self._run()
+        else:
+            self.graph.replay()
+            outs = self.outputs
+            _k.count_replay(self.launches)
+        self.replays += 1
+        return outs
+
+    def __call__(self, tree, a: Optional[torch.Tensor] = None):
+        self.stage(tree, a)
+        return pytree.unflatten(self.layout.treedef, self.replay())
+
+
+class LoweredTree:
+    """``lower_tree``'s result: the stage->kernel->split program of one
+    tree layout, not yet compiled.  ``donated`` holds one flag per leaf,
+    whether the program takes the leaf over (the donated flags of the
+    reference's ``Lowered.args_info``)."""
+
+    def __init__(self, engine: AggregationEngine, layout: _TreeLayout, *,
+                 weighted: bool, device: torch.device):
+        self.engine = engine
+        self.layout = layout
+        self.weighted = weighted
+        self.device = device
+        self.donated = (bool(engine.donate_leaves),) * len(layout.shapes)
+
+    def compile(self) -> TreeProgram:
+        """The tree program over fresh static inputs.  On a CUDA device:
+        one warm-up of kernel->split on a side stream, then its capture,
+        as ``LoweredLaunch.compile`` does."""
+        engine, layout = self.engine, self.layout
+        x = torch.zeros((layout.k, layout.m_total), dtype=torch.float32,
+                        device=self.device)
+        a = torch.ones((layout.k,), dtype=torch.float32,
+                       device=self.device) if self.weighted else None
+        engine._record(x, layout.k, layout.m_total)
+
+        def run() -> list:
+            return layout.split(engine.aggregate(x, a))
+
+        program = TreeProgram(self, x, a, run)
+        if self.device.type != "cuda":
+            return program
+        warm_up(run, self.device)
+        program.graph, program.outputs, program.launches = capture_graph(run)
+        return program
+
+
+def warm_up(fn: Callable[[], object], device: torch.device) -> None:
+    """fn once on a side stream, then a synchronize: what must happen
+    before a capture (the kernel library's load, its shared-memory
+    opt-in, the occupancy query, the tuning cache) happens here."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn()
+    current.wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
+def capture_graph(fn: Callable[[], object],
+                  generators: Sequence[torch.Generator] = ()):
+    """Capture fn into a new CUDA graph: (graph, fn's output, the kernel
+    launches it captured as ((plan, k, m), count) pairs).  Each
+    generator in ``generators`` is registered with the graph, so every
+    replay draws from its state at the replay, as the eager code would.
+    A failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    for generator in generators:
+        graph.register_generator_state(generator)
+    with _k.record_captured() as launches:
+        with torch.cuda.graph(graph):
+            out = fn()
+    return graph, out, tuple(collections.Counter(launches).items())
+
+
+def stage_leaves(leaves, out: Optional[torch.Tensor] = None, *,
+                 layout: Optional[_TreeLayout] = None,
+                 donate: bool = False) -> torch.Tensor:
+    """Copy stacked (K, ...) leaves into one (K, M_total) f32 buffer,
+    leaf after leaf along M (the tree path's staging layout, ``layout``'s
+    sizes and offsets where it is given): ``out``, or a new one.  With
+    ``donate`` each leaf is released as soon as it and every later leaf
+    on the same storage are staged; a leaf whose storage cannot be
+    released raises ``ValueError`` before any is staged."""
+    if layout is None:
+        layout = _TreeLayout(None, leaves)
+    k = layout.k
+    buf = out if out is not None else torch.empty(
+        (k, layout.m_total), dtype=torch.float32, device=leaves[0].device)
+    if donate:
+        _check_donatable(leaves)
+    keys = [_storage_key(leaf) for leaf in leaves] if donate else []
+    last = {key: i for i, key in enumerate(keys)}
+    for i, (leaf, off, n) in enumerate(zip(leaves, layout.offsets,
+                                           layout.sizes)):
         buf[:, off:off + n].copy_(leaf.reshape(k, n))
-        off += n
+        if donate and last[keys[i]] == i:
+            for shared, key in zip(leaves[:i + 1], keys):
+                if key == keys[i]:
+                    _donate(shared)
     return buf
 
 

@@ -181,11 +181,15 @@ class ScenarioSpec:
 class ScenarioResult:
     """Uniform result of ``runner.run``.
 
-    ``compile_s`` is what a miss of the runner's executable cache costs:
-    the adapter's lowering and one warm-up step on a copy of the initial
-    state (the kernels' build at first use and their first launch); 0.0
-    on a hit (``compile_cache_hit``).  ``wall_clock_s`` is every step of
-    the run, ended by a device synchronize, on a hit or a miss."""
+    ``compile_s`` is what a miss of the runner's executable cache costs,
+    ``runner.trace_spec``: the adapter's lowering, one warm-up step on a
+    copy of the initial state (the kernels' build at first use and their
+    first launch) and, on a card, the capture of the whole trajectory
+    into one CUDA graph (the eager ``substrate`` paradigm and ``rs_mm``
+    collective lowering capture nothing); 0.0 on a hit
+    (``compile_cache_hit``).  ``wall_clock_s`` is the replay of every
+    step of the run (one graph replay on a card), ended by a device
+    synchronize, on a hit or a miss."""
 
     spec: ScenarioSpec
     history: Dict[str, np.ndarray]     # msd / loss / consensus, (num_steps,)

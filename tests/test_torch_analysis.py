@@ -515,6 +515,57 @@ def test_mutation_serve_per_tenant_caches():
         launch_audit.check_serve_multitenant(one))
 
 
+def test_launch_audit_donation_clean():
+    assert launch_audit.check_donation() == []
+
+
+def _flag_only(donated, engine):
+    """An engine whose lowered program reports ``donated`` flags but
+    whose calls are ``engine``'s."""
+    def lower_tree(tree, a=None):
+        low = engine.lower_tree(tree, a)
+        return types.SimpleNamespace(donated=donated, compile=low.compile)
+    return types.SimpleNamespace(lower_tree=lower_tree,
+                                 aggregate_tree=engine.aggregate_tree)
+
+
+def test_mutation_donation_flags_and_releases():
+    plain, donating = ops.AggregationEngine(), \
+        ops.AggregationEngine(donate_leaves=True)
+    # the flags say donated, the calls release nothing
+    got = launch_audit.check_donation(donating=_flag_only((True, True),
+                                                          plain))
+    assert [(f.where, f.ident) for f in got] == [
+        ("lower_tree/donated", "aggregate_tree"),
+        ("lower_tree/donated", "program")]
+    # the flags do not reach the lowering
+    got = launch_audit.check_donation(donating=_flag_only((False, True),
+                                                          donating))
+    assert [(f.where, f.ident) for f in got] == [("lower_tree/donated", "")]
+    # a plain engine that releases the caller's leaves
+    got = launch_audit.check_donation(plain=_flag_only((False, False),
+                                                       donating))
+    assert {f.where for f in got} == {"lower_tree/plain"}
+    assert ("donation", "aggregate_tree") in _rules(got)
+    assert ("donation", "program") in _rules(got)
+
+
+def test_mutation_trajectory_launch_count(monkeypatch):
+    """A compiled trajectory whose replay launches nothing."""
+    from repro_torch.scenarios import runner
+    real = runner.trace_spec
+
+    def hollow(spec, **kw):
+        program, records = real(spec, **kw)
+        program.replay = lambda **_: None
+        return program, records
+
+    monkeypatch.setattr(runner, "trace_spec", hollow)
+    got = launch_audit.check_scenarios(launch_audit.scenario_specs()[:1])
+    assert ("launch-count", "trajectory") in _rules(got)
+    assert len(got) == 1
+
+
 def test_audit_leaves_the_launch_counts_alone():
     before = (dict(mk.LAUNCHES), dict(mk.LAUNCHES_BY_VARIANT),
               dict(mk.LAUNCHES_BY_SHAPE))
