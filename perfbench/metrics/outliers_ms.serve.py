@@ -1,0 +1,15 @@
+"""outliers_ms.serve (ms): ``AggregationService.phase_ms()["outliers"]``,
+the CUDA-event time of the residual check, median over the window's
+commits outside the profiler."""
+
+import statistics
+
+PHASE = "outliers"
+
+
+def read(rec):
+    if rec["kind"] != "serve":
+        return None
+    n = rec["records"].get("traced_commits", 0)
+    ms = [p[PHASE] for p in rec["records"]["phase_ms"][n:] if PHASE in p]
+    return statistics.median(ms) if ms else None
