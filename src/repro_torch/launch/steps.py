@@ -35,7 +35,6 @@ batch with the same per-layer gather (forward only).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -47,6 +46,7 @@ from repro_torch.core import sharded as sharded_lib
 from repro_torch.launch.mesh import AgentMesh, agent_axes, num_agents
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers
+from repro_torch.tracing import PhaseTimer
 
 AGGREGATIONS = ("mean", "gather_mm", "rs_mm", "hier_mm")
 # the seed of the attack's generator, folded with the step as the
@@ -105,42 +105,6 @@ def grad_consensus(grads, benign: torch.Tensor) -> torch.Tensor:
             total = total + torch.square(
                 torch.linalg.vector_norm(gf[k] - centroid)) * bf[k]
     return total / nb
-
-
-class PhaseTimer:
-    """CUDA-event device times of a step's phases, summed per name; a
-    no-op off the card."""
-
-    def __init__(self, enabled: bool):
-        self.enabled = enabled
-        self._events: list = []
-
-    def reset(self) -> None:
-        self._events = []
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self._events.append((name, start, end))
-
-    def phase_ms(self) -> dict:
-        """{phase: device ms} of the last step (synchronizes)."""
-        if not self._events:
-            return {}
-        torch.cuda.synchronize()
-        out: dict = {}
-        for name, start, end in self._events:
-            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
-        return out
 
 
 class TrainStep:

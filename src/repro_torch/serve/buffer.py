@@ -34,6 +34,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.tracing import PhaseTimer
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AgentUpdate:
@@ -62,11 +64,14 @@ class Pending:
 
 
 class CohortBuffer:
-    """One pending slot per agent + duplicate/staleness gating."""
+    """One pending slot per agent + duplicate/staleness gating.
+    ``timer`` times the finiteness check as the phase ``admit``."""
 
-    def __init__(self, *, max_staleness: int = 4, max_buffer: int = 4096):
+    def __init__(self, *, max_staleness: int = 4, max_buffer: int = 4096,
+                 timer: Optional[PhaseTimer] = None):
         self.max_staleness = max_staleness
         self.max_buffer = max_buffer
+        self.timer = timer if timer is not None else PhaseTimer(False)
         self._pending: Dict[int, Pending] = {}
         self._last_seq: Dict[int, int] = {}
 
@@ -91,7 +96,11 @@ class CohortBuffer:
             # stale delivery must not be re-considered later
             self._last_seq[update.agent_id] = update.seq
             return "rejected_stale"
-        if not bool(torch.isfinite(update.payload).all()):
+        # the check's end event goes before the host waits for its answer
+        token = self.timer.begin("admit")
+        finite = torch.isfinite(update.payload).all()
+        self.timer.end(token)
+        if not bool(finite):
             self._last_seq[update.agent_id] = update.seq
             return "rejected_invalid"
         superseding = update.agent_id in self._pending

@@ -62,6 +62,7 @@ from repro_torch.serve import retry as _retry
 from repro_torch.serve.buffer import AgentUpdate, CohortBuffer, Pending
 from repro_torch.serve.clock import WallClock
 from repro_torch.serve.telemetry import ServeTelemetry
+from repro_torch.tracing import PhaseTimer
 
 DEGRADATIONS = ("partial", "carry")
 
@@ -277,6 +278,16 @@ def cohort_weights(entries: List[Pending], config: ServeConfig,
          for p in entries], dtype=np.float32)
 
 
+def _launch_record(program) -> dict:
+    """The launch a program replays: its kernel path and variant (None
+    on the ``jnp`` backend) and its (K, M, N)."""
+    plan = program.plan
+    k, m = program.x.shape
+    return {"path": plan.path if plan is not None else None,
+            "variant": (plan.variant or plan.path) if plan is not None
+            else None, "k": int(k), "m": int(m), "n": 1}
+
+
 def assemble_cohort(entries: List[Pending], config: ServeConfig,
                     health_factors: Optional[Dict[int, float]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -300,7 +311,11 @@ class AggregationService:
     fresh journal here, or restore a crashed service with
     ``AggregationService.recover(journal, ...)``.  ``device`` holds the
     model, the payloads and the launches (``"cuda"`` by default; raises
-    without a card unless the caller asks for ``"cpu"``).
+    without a card unless the caller asks for ``"cpu"``).  ``timer``
+    times the service's phases (``phase_ms``); one with ``spans=True``
+    also keeps its host spans: ``submit`` > ``admit`` for each update,
+    ``commit`` > ``stage``, ``replay`` (with the program's launch record),
+    ``take``, ``guard``, ``outliers``, ``clip``, each with its round.
     """
 
     def __init__(self, model0, *, config: ServeConfig = ServeConfig(),
@@ -309,9 +324,11 @@ class AggregationService:
                  exec_cache: Optional[ExecutableCache] = None,
                  journal: Optional[_journal.Journal] = None,
                  telemetry: Optional[ServeTelemetry] = None,
-                 device="cuda"):
+                 device="cuda", timer: Optional[PhaseTimer] = None):
         self.config = config
         self.device = devices.resolve(device)
+        self.timer = timer if timer is not None \
+            else PhaseTimer(self.device.type == "cuda")
         self.clock = clock if clock is not None else WallClock()
         self._w = _as_vector(model0, self.device).clone()
         if not bool(torch.isfinite(self._w).all()):
@@ -321,7 +338,8 @@ class AggregationService:
         self.telemetry = telemetry if telemetry is not None \
             else ServeTelemetry()
         self.buffer = CohortBuffer(max_staleness=config.max_staleness,
-                                   max_buffer=config.max_buffer)
+                                   max_buffer=config.max_buffer,
+                                   timer=self.timer)
         self._rng = np.random.default_rng(seed)
         self._fault_hook = fault_hook
         self.exec_cache = exec_cache if exec_cache is not None \
@@ -333,7 +351,9 @@ class AggregationService:
         self._health: Dict[int, AgentHealth] = {}
         self._journal: Optional[_journal.Journal] = None
         self._recovering = False
-        self._phases: Dict[str, tuple] = {}
+        # the timer's mark at the first submit after the last launched
+        # commit: the admissions from there on belong to the next commit
+        self._admit_mark: Optional[int] = None
         c95 = ops.mestimators.TUKEY_C95
         self._engines = {
             False: ops.get_engine(num_iters=config.num_iters,
@@ -402,7 +422,8 @@ class AggregationService:
                 seed: int = 0, fault_hook: Optional[Callable] = None,
                 exec_cache: Optional[ExecutableCache] = None,
                 telemetry: Optional[ServeTelemetry] = None,
-                device="cuda") -> "AggregationService":
+                device="cuda", timer: Optional[PhaseTimer] = None
+                ) -> "AggregationService":
         """Rebuild a crashed service from its journal (the reference's
         or this package's: the format is one): load the last snapshot,
         then replay the record tail *through the live gate logic*
@@ -414,7 +435,7 @@ class AggregationService:
         state = _journal.recover_state(journal)
         svc = cls(state.model, config=config, clock=clock, seed=seed,
                   fault_hook=fault_hook, exec_cache=exec_cache,
-                  telemetry=telemetry, device=device)
+                  telemetry=telemetry, device=device, timer=timer)
         svc.round = state.round
         svc._step_norm_ema = state.ema
         pending = [Pending(
@@ -474,6 +495,15 @@ class AggregationService:
         """Deliver one update; returns the admission verdict and pumps
         full-cohort admissions.  The payload moves to the service's
         device here."""
+        if self._admit_mark is None:
+            self._admit_mark = self.timer.mark()
+        token = self.timer.begin("submit", device=False, round=self.round)
+        try:
+            return self._submit(update)
+        finally:
+            self.timer.end(token)
+
+    def _submit(self, update: AgentUpdate) -> str:
         update = dataclasses.replace(
             update, payload=_as_vector(update.payload, self.device))
         was_empty = len(self.buffer) == 0
@@ -520,15 +550,14 @@ class AggregationService:
 
     def phase_ms(self) -> Dict[str, float]:
         """Device milliseconds of the last launched commit's phases --
-        ``stage`` (the rows copied into the static cohort buffer, last
-        attempt), ``replay`` (the launch program), ``outliers`` (the
+        ``admit`` (the finiteness checks of every update submitted since
+        the commit before it was launched), ``stage`` (the rows copied
+        into the static cohort buffer), ``replay`` (the launch program),
+        ``take`` (the estimate copied out of the program's output),
+        ``guard`` (the estimate's finiteness check), ``outliers`` (the
         residual norms) and ``clip`` (the trust-region step) -- from
         CUDA-event pairs; empty off the card."""
-        out = {}
-        for name, (start, end) in self._phases.items():
-            end.synchronize()
-            out[name] = start.elapsed_time(end)
-        return out
+        return self.timer.phase_ms(before=self._admit_mark)
 
     def launch_audit(self) -> Optional[dict]:
         """``mm_aggregate.launch_plan`` dicts for every kernel workload
@@ -606,19 +635,6 @@ class AggregationService:
                     self.health_of(p.update.agent_id).score)
                 for p in entries}
 
-    def _event(self) -> Optional[torch.cuda.Event]:
-        """A timing event recorded on the current stream (None off the
-        card)."""
-        if self.device.type != "cuda":
-            return None
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def _phase(self, name: str, start) -> None:
-        if start is not None:
-            self._phases[name] = (start, self._event())
-
     def _mark_estimator_outliers(self, rows: Sequence[torch.Tensor],
                                  entries: List[Pending],
                                  center: torch.Tensor) -> tuple:
@@ -632,11 +648,11 @@ class AggregationService:
         excluded by construction (``entries`` only)."""
         if not self.config.health_gate:
             return ()
-        start = self._event()
+        token = self.timer.begin("outliers")
         k = len(entries)
         r = torch.stack([torch.linalg.vector_norm(rows[i] - center)
                          for i in range(k)]).cpu().numpy()
-        self._phase("outliers", start)
+        self.timer.end(token)
         med = float(np.median(r))
         madn = 1.4826 * float(np.median(np.abs(r - med)))
         # identical honest payloads give MADN == 0; the relative floor
@@ -658,6 +674,13 @@ class AggregationService:
             self._admit(deadline=False)
 
     def _admit(self, *, deadline: bool) -> CommitResult:
+        token = self.timer.begin("commit", device=False, round=self.round)
+        try:
+            return self._admit_cohort(deadline)
+        finally:
+            self.timer.end(token)
+
+    def _admit_cohort(self, deadline: bool) -> CommitResult:
         cfg = self.config
         k = min(len(self.buffer), cfg.k_min)
         if deadline and k < cfg.k_min:
@@ -728,7 +751,8 @@ class AggregationService:
                 a = np.concatenate(
                     [a, np.full((n_anchor,), a.sum() / n_anchor,
                                 dtype=np.float32)])
-        self._phases = {}
+        self.timer.reset(since=self._admit_mark)
+        self._admit_mark = None
         try:
             result, wall, attempts, cache_hit, compile_s = \
                 self._launch(rows, a, degraded)
@@ -738,7 +762,10 @@ class AggregationService:
             self.telemetry.count(
                 "launch_attempts_exhausted", err.attempts)
             return self._carry(len(entries), ids, consumed=entries)
-        if not bool(torch.isfinite(result).all()):
+        token = self.timer.begin("guard")
+        finite = torch.isfinite(result).all()
+        self.timer.end(token)
+        if not bool(finite):
             self.telemetry.count("nonfinite_rejected")
             return self._carry(len(entries), ids, consumed=entries)
 
@@ -751,7 +778,7 @@ class AggregationService:
         # a byzantine-majority cohort moves the model by at most
         # trust_factor x the EMA of recent (clipped, full-cohort) step
         # norms.  On the device; a clipped step is scaled in place.
-        start = self._event()
+        token = self.timer.begin("clip")
         clipped = False
         delta = result - self._w
         norm = float(torch.linalg.vector_norm(delta))
@@ -763,7 +790,7 @@ class AggregationService:
                 clipped = True
                 self.telemetry.count("step_clipped")
         del delta
-        self._phase("clip", start)
+        self.timer.end(token)
         if not degraded:
             self._step_norm_ema = norm if self._step_norm_ema is None \
                 else 0.9 * self._step_norm_ema + 0.1 * norm
@@ -834,6 +861,7 @@ class AggregationService:
                 degraded: bool):
         program, cache_hit, compile_s = self._compiled(len(rows), degraded)
         weights = torch.from_numpy(a)
+        launch = _launch_record(program) if self.timer.spans_on else None
 
         def attempt():
             if self._fault_hook is not None:
@@ -841,20 +869,23 @@ class AggregationService:
             # staged on every attempt into the geometry's static buffer,
             # which other programs of the geometry (and other tenants)
             # share, as the reference re-stages its donated buffer
-            start = self._event()
+            token = self.timer.begin("stage")
             program.stage(rows, weights)
-            self._phase("stage", start)
-            start = self._event()
+            self.timer.end(token)
+            token = self.timer.begin("replay", attrs=launch)
             t0 = time.perf_counter()
             out = program.replay()
-            self._phase("replay", start)
+            self.timer.end(token)
             self._sync()
             wall = time.perf_counter() - t0
             self.exec_cache.replays += 1
             self.telemetry.record_replay()
             # the graph's output is overwritten by its next replay, by
             # any tenant sharing the cache: take it out first
-            return out.clone(), wall
+            token = self.timer.begin("take")
+            out = out.clone()
+            self.timer.end(token)
+            return out, wall
 
         def on_retry(attempt_i, exc, delay):
             self.telemetry.count("launch_backoffs")
