@@ -142,8 +142,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
               times of staging, replay, outlier check and clip.
  13 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
               layer (M = 15,730,944), the last 16 agents shifted by
-              1000, two commits: the single-pass smem variant, held to
-              its plain version.
+              1000, two commits: the two-pass kernel in one 128-row K
+              block, held to its plain version.
  14 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
               1024, vocab 151,936 padded to 152,064, 751,894,528 f32
               parameters in 14 leaves, bf16 activations) randomly
@@ -1788,11 +1788,16 @@ class Smoke:
             by_name = {"note": "torch.profiler attributed no device time "
                                "to the graph replay; ms and call_ms are "
                                "CUDA-event times"}
-        t, by = bound(plan.total_bytes, mm_ops(k, m, 1, True))
+        two = plan.path == "two_pass"
+        t, by = bound(plan.total_bytes, mm_ops(
+            k, m, 1, True, sort_rows=plan.block_k if two else 0))
+        name = "mm_two_pass" if two else "mm_single_pass"
         self.kernels[key] = dict(
-            name=key, shape=label, variant=plan.variant, launches=launches,
-            source="src/repro_torch/kernels/csrc/mm_single_pass.cu",
-            replaces="src/repro/kernels/mm_aggregate.py:243",
+            name=key, shape=label, variant=plan.variant or "two_pass",
+            launches=launches,
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces="src/repro/kernels/mm_aggregate.py:" +
+                     ("306" if two else "243"),
             max_abs_err=plain_err, ms=ms, call_ms=call_ms, profiler_ms=prof,
             profiler_kernels=by_name, plain_ms=plain_ms, bound_ms=t,
             bound_by=by, library_ms=None, block_m=plan.block_m,
@@ -1800,9 +1805,10 @@ class Smoke:
         return self.kernels[key]
 
     def plain_over(self, x, a, est, chunk):
-        """(plain ms, max |d|) of the single-pass plain version over every
-        column of x (K, M) with weights a (K,), ``chunk`` columns at a
-        time, against the estimate ``est`` (M,)."""
+        """(plain ms, max |d|) of the plain version of the kernel the
+        launch plan takes, over every column of x (K, M) with weights a
+        (K,), ``chunk`` columns at a time, against the estimate ``est``
+        (M,)."""
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
         k, m = x.shape
@@ -2031,20 +2037,22 @@ class Smoke:
                    for c in commits), commits
         assert (stats["exec_cache_compiles"],
                 stats["exec_cache_replays"]) == (1, 2), stats
-        assert counts == {"single_pass": 3, "two_pass": 0}, counts
-        assert variants["smem"] == 3, variants
+        assert counts == {"single_pass": 0, "two_pass": 3}, counts
         assert check["eager_equal"], check
         assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
         (program,) = svc.exec_cache.programs()
-        assert program.plan.variant == "smem", program.plan
+        assert program.plan.path == "two_pass", program.plan
+        assert program.plan.num_k_blocks == 1, program.plan
         entry = self.measure_program(
-            "mm_single_pass (serve, 128-client cohort layer)",
+            "mm_two_pass (serve, 128-client cohort layer)",
             f"K={k} M={m} N=1 f32 (service, graph replay)", program,
             stats["exec_cache_replays"], check["max_abs_err_all_columns"],
             check["plain_ms"])
         emit({"phase": "serve_cohort", "m": m, "k": k, "stats": stats,
-              "launches": counts, "variant": program.plan.variant,
+              "launches": counts, "path": program.plan.path,
               "block_m": program.plan.block_m,
+              "block_k": program.plan.block_k,
+              "num_k_blocks": program.plan.num_k_blocks,
               "smem_bytes": program.plan.smem_bytes,
               "eager_equal": check["eager_equal"],
               "max_abs_err_all_columns": check["max_abs_err_all_columns"],

@@ -274,7 +274,8 @@ def check_workload(k: int, m: int, n: int, dtype="float32",
     findings = audit_call(plan, call, query=query)
     # auto-resolution: with nothing pinned and no tuning winner naming a
     # path, the plan's path is the crossover's
-    if path is None and block_m is None and block_k is None:
+    if path is None and block_m is None and block_k is None \
+            and variant is None:
         from repro_torch.kernels import tuning
         if tuning.get_choice(k, m, n=n, dtype=dt).path is None:
             want = mk.auto_path(k, n)
@@ -283,7 +284,7 @@ def check_workload(k: int, m: int, n: int, dtype="float32",
                     rule="path-crossover", path="kernel",
                     where=_where(plan),
                     detail=f"auto-resolved path {plan.path!r} disagrees "
-                           f"with the shared-memory crossover {want!r} "
+                           f"with the crossover {want!r} "
                            "(and no tuning winner pins it)"))
     return findings
 

@@ -15,8 +15,8 @@ structural audits:
     single-pass plan's).  A kernel with N in its grid would stream the
     update matrix once per weight column (N x the bytes).
 
-Also: large-cohort rows timing the two-pass kernel (K >= 256, where the
-single-pass tile does not fit a block at 128 columns), an IRLS-depth
+Also: large-cohort rows timing the two-pass kernel (K >= 256, where
+``auto_path`` takes it at any N), an IRLS-depth
 sweep (``irls_sweep``: num_iters in {3, 5, 10} at fixed (K, M), time per
 call and MSD against a converged T=50 oracle, the data behind the
 default T=10), the scenario runner's paradigms, and the LM substrate
@@ -47,7 +47,7 @@ from repro_torch.scenarios import runner
 
 SHAPES = ((16, 1 << 16), (32, 1 << 18))
 SMOKE_SHAPES = ((8, 1 << 12),)
-# two-pass territory: meshes whose single-pass tile does not fit a block
+# two-pass territory: meshes of 256 agents and more at any N
 LARGE_K_SHAPES = ((256, 1 << 14), (1024, 1 << 13))
 SMOKE_LARGE_K_SHAPES = ((256, 1 << 12),)
 IRLS_DEPTHS = (3, 5, 10)

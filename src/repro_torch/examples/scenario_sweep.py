@@ -42,8 +42,7 @@ SMOKE = dict(num_agents=8, dim=8, num_steps=25, num_malicious=2)
 # large_cohort family: production-scale agent counts at low
 # participation on the kernel backend.  The federated cohort
 # (clients_per_round = participation * K) is the kernel's K axis, so
-# K=1024 @ 0.5 aggregates 512 agents, whose single-pass tile does not
-# fit a Hopper block: the two-pass kernel
+# K=1024 @ 0.5 aggregates 512 agents: the two-pass kernel
 LARGE_COHORT_DIM = 256
 LARGE_COHORT_SMOKE = (("federated", 1024, 0.5), ("sharded", 256, 1.0))
 LARGE_COHORT_FULL = tuple(

@@ -38,16 +38,15 @@ nothing.
 
 ``launch_plan`` is the single source of truth for a launch's geometry,
 its modeled HBM traffic and the shared memory a block carves, against
-Hopper's 227 KB (232,448 B) per block.  The path crossover follows from
-that limit: the single-pass kernel needs its whole (K, bm) tile plus a
-row index per element at a tile of at least ``SINGLE_PASS_MIN_BLOCK_M``
-columns (its median, MAD and IRLS run one thread per (column, n) pair,
-so a narrower tile leaves most of a block's threads idle), and a mesh of
-at least 65 agents whose single-pass tile does not fit takes the
-two-pass kernel, whose blocks hold ``block_m`` <= 8 columns, one warp
-each.  At N = 1 the crossover sits at K ~ 300.  Within the
-single pass, ``single_pass_variant`` picks the variant from (K, M, N)
-alone; the plan records it and the launcher never substitutes another.
+Hopper's 227 KB (232,448 B) per block.  The path crossover
+(``auto_path``) is measured, not derived from that limit: from 65
+agents the two-pass kernel, whose blocks hold ``block_m`` <= 8 columns,
+one warp each, outruns the single pass's smem variant (which ranks a
+column's rows by counting, K^2 compares) 1.6-7x at N = 1 over 2^20
+columns from K = 76 to 256, except at a few agents over 64 and many
+weight columns, where the single pass stays.  Within the single pass,
+``single_pass_variant`` picks the variant from (K, M, N) alone; the plan
+records it and the launcher never substitutes another.
 """
 
 from __future__ import annotations
@@ -72,6 +71,12 @@ _MAD_CONSISTENCY = 1.4826022185056018
 
 PATHS = ("single", "two_pass")
 _TWO_PASS_MIN_K = 65
+# (largest N of a bracket, largest K the single pass keeps there; above
+# the last bracket, its K): from 65 agents the two-pass kernel is faster
+# unless the smem variant's sort stays cheap against the two-pass
+# kernel's IRLS, which costs it more for every weight column
+SMEM_KEEPS = ((1, 68), (4, 72), (8, 80), (16, 96), (32, 112), (64, 160),
+              (128, 192))
 # largest K block the two-pass path sorts at once (more K -> several
 # blocks -> the approximate median-of-medians init, as in the reference)
 _MAX_BLOCK_K2 = 512
@@ -172,8 +177,7 @@ class LaunchPlan(NamedTuple):
 def single_pass_smem_bytes(k: int, n: int, block_m: int) -> int:
     """Shared memory of the single-pass smem variant: the (K, bm) f32
     tile, the (K, N) weight tile and the (K, bm) uint16 row-index tile
-    (the C function ``mm_single_pass_smem_bytes`` computes the same).
-    ``auto_path`` sizes the single/two-pass crossover with it."""
+    (the C function ``mm_single_pass_smem_bytes`` computes the same)."""
     return 4 * k * block_m + 4 * k * n + 2 * k * block_m
 
 
@@ -238,13 +242,20 @@ def two_pass_block_k(k: int) -> int:
 
 
 def auto_path(k: int, n: int) -> str:
-    """Two-pass iff the mesh has >= 65 agents and the single-pass tile
-    does not fit a block's shared memory at ``SINGLE_PASS_MIN_BLOCK_M``
-    columns.  It depends on (K, N) only, so M never flips the path."""
-    if int(k) >= _TWO_PASS_MIN_K and single_pass_smem_bytes(
-            k, n, SINGLE_PASS_MIN_BLOCK_M) > SMEM_BUDGET_BYTES:
-        return "two_pass"
-    return "single"
+    """Two-pass from 65 agents, except up to the K that ``SMEM_KEEPS``
+    gives N, where the smem variant ran more than 5% faster on an H100
+    (weighted f32 at M = 2^20; the same at M = 15,730,944 and in bf16),
+    while its tile fits a block at 32 columns.  It depends on (K, N)
+    only, so M never flips the path, though over fewer than ~2^16
+    columns the two-pass kernel is 2-16x faster there too (the smem
+    variant's few blocks do not fill the card)."""
+    k, n = int(k), max(int(n), 1)
+    keeps = next((kk for top_n, kk in SMEM_KEEPS if n <= top_n),
+                 SMEM_KEEPS[-1][1])
+    if k < _TWO_PASS_MIN_K or (k <= keeps and single_pass_smem_bytes(
+            k, n, _MIN_BLOCK_M) <= SMEM_BUDGET_BYTES):
+        return "single"
+    return "two_pass"
 
 
 def launch_plan(k: int, m: int, n: int = 1, *,
@@ -257,17 +268,20 @@ def launch_plan(k: int, m: int, n: int = 1, *,
     """Resolve the kernel path + tile sizes (via kernels.tuning when
     unset) and derive the grid, modeled HBM traffic and shared memory of
     a (K, M) x (K, N) launch.  ``path=None`` takes the cached tuning
-    choice when it names a path, else ``auto_path``.  The single-pass
-    kernel loads all K rows as one block, so ``block_k`` and ``n_chunk``
-    (None: ``two_pass_n_chunk``) apply to the two-pass path only;
-    ``variant=None`` takes ``single_pass_variant``, and a variant named
-    for a K it cannot hold raises."""
+    choice when it names a path, else ``auto_path``; a named ``variant``
+    pins the single pass.  The single-pass kernel loads all K rows as one
+    block, so ``block_k`` and ``n_chunk`` (None: ``two_pass_n_chunk``)
+    apply to the two-pass path only; ``variant=None`` takes
+    ``single_pass_variant``, and a variant named for a K it cannot hold
+    raises."""
     if path is not None and path not in PATHS:
         raise ValueError(f"unknown kernel path {path!r}; known: {PATHS}")
     if variant is not None and variant not in SINGLE_PASS_VARIANTS:
         raise ValueError(f"unknown single-pass variant {variant!r}; known: "
                          f"{tuple(SINGLE_PASS_VARIANTS)}")
     dtype = _as_dtype(dtype)
+    if variant is not None and path is None:
+        path = "single"
     if block_m is None or block_k is None or path is None:
         from repro_torch.kernels import tuning  # deferred: tuning sizes plans
         choice = tuning.get_choice(k, m, n=n, dtype=dtype)

@@ -375,7 +375,7 @@ def test_record_calls_sees_every_device_and_nests():
     assert [c.key for c in inner] == [("warp", 8, 300, 1)]
     assert [c.key for c in outer] == [("warp", 8, 300, 1),
                                       ("warp", 8, 300, 1),
-                                      ("smem", 128, 64, 3)]
+                                      ("two_pass", 128, 64, 3)]
     # LAUNCHES counts CUDA launches only
     assert mk.LAUNCHES == {"single_pass": 0, "two_pass": 0} or \
         torch.cuda.is_available()

@@ -1,7 +1,7 @@
 """``repro_torch.analysis.bench_audit`` on the CPU: a good agg,
 large_cohort and serve record passes, each rule's mutation is caught
-(two-pass taken where the single-pass tile fits a Hopper block, a launch
-program captured again after warm-up, ...), the port's file names are
+(two-pass taken below the crossover, the single pass kept above it, a
+launch program captured again after warm-up, ...), the port's file names are
 inferred, the CLI's exit codes; and the port's own benchmarks
 (``agg_bench --smoke``, ``serve_bench``) pass their audits."""
 
@@ -76,19 +76,20 @@ def test_agg_audit_catches_each_rule(agg_good):
 def test_large_cohort_audit_good_and_mutations():
     good = {"rows": [_cohort_row(512), _cohort_row(256), _cohort_row(12)]}
     assert [r["launch_audit"]["path"] for r in good["rows"]] == \
-        ["two_pass", "single", "single"]
+        ["two_pass", "two_pass", "single"]
     assert bench_audit.audit_large_cohort(good) == []
-    assert bench_audit.audit_large_cohort({"rows": [_cohort_row(256)]}) == \
+    assert bench_audit.audit_large_cohort({"rows": [_cohort_row(64)]}) == \
         ["no two-pass scenario in the large-cohort family"]
-    # two-pass taken where the single-pass tile fits 232,448 B
-    assert mk.single_pass_smem_bytes(128, 1, 128) <= mk.SMEM_BUDGET_BYTES
-    early = _cohort_row(128, path="two_pass")
+    # two-pass taken just below the crossover
+    assert mk.auto_path(64, 1) == "single"
+    early = _cohort_row(64, path="two_pass")
     errs = bench_audit.audit_large_cohort({"rows": good["rows"] + [early]})
     assert len(errs) == 1 and "auto_path takes single" in errs[0]
-    # the single pass kept where its tile does not fit
-    late = _cohort_row(512, path="single")
+    # the single pass kept above it, at the 128-client cohort
+    assert mk.auto_path(128, 1) == "two_pass"
+    late = _cohort_row(128, path="single")
     errs = bench_audit.audit_large_cohort({"rows": good["rows"] + [late]})
-    assert any("auto_path takes two_pass" in e for e in errs)
+    assert len(errs) == 1 and "auto_path takes two_pass" in errs[0]
     over = copy.deepcopy(good)
     over["rows"][0]["launch_audit"]["smem_bytes"] = mk.SMEM_BUDGET_BYTES + 1
     assert any("over 232448" in e

@@ -66,13 +66,18 @@ def test_two_pass_reads_x_once_at_k_2048():
 
 
 def test_crossover_follows_the_shared_memory_limit():
-    assert TK.auto_path(64, 1) == "single"
-    assert TK.auto_path(300, 1) == "single"
+    """The crossover is the card's sweep, not the single-pass tile's
+    shared memory (which still fits 128 columns up to K = 301 at N = 1):
+    from 65 agents the two-pass kernel, at every M, except up to the K
+    where the smem variant stayed faster at that N."""
     assert TK.single_pass_smem_bytes(301, 1, 128) <= BUDGET
-    assert TK.auto_path(302, 1) == "two_pass"
-    assert TK.single_pass_smem_bytes(302, 1, 128) > BUDGET
-    assert TK.auto_path(512, 1) == "two_pass"     # the large-cohort shape
+    for n, last_single in ((1, 68), (8, 80), (32, 112)):
+        assert TK.auto_path(64, n) == "single"
+        assert TK.auto_path(last_single, n) == "single"
+        for k in (last_single + 1, 128, 300, 301, 302, 512):  # 512: the
+            assert TK.auto_path(k, n) == "two_pass", (k, n)   # large cohort
     for m in (7, 256, 10 ** 7):
+        assert TK.launch_plan(128, m, 1).path == "two_pass"
         assert TK.launch_plan(512, m, 1).path == "two_pass"
     # K=1024: two 512-row blocks, 8 columns a block
     plan = TK.launch_plan(1024, 4096, 1, path="two_pass")

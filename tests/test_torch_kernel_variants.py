@@ -59,15 +59,21 @@ def test_variant_crossovers(k, m, n, want):
     assert TK.launch_plan(k, m, n, path="single").variant == want
 
 
-@pytest.mark.parametrize("n", [1, 3, 32])
-def test_auto_path_is_unchanged_by_the_variants(n):
-    """The single/two-pass crossover is still the smem variant's tile at
-    128 columns against the block's budget, for K >= 65 only."""
+@pytest.mark.parametrize("n,last_single", [(1, 68), (3, 72), (32, 112)])
+def test_auto_path_is_unchanged_by_the_variants(n, last_single):
+    """No variant's choice enters the single/two-pass crossover: K <= 64
+    takes a single-pass variant (smem over wide M x N from K = 33), and
+    from 65 agents the two-pass kernel, but for the few agents over 64
+    where the smem variant stayed faster at this N on the card."""
     for k in range(2, 2049):
-        smem_tile = 6 * k * 128 + 4 * k * n
-        want = "two_pass" if k >= 65 and smem_tile > 232_448 else "single"
+        want = "single" if k <= last_single else "two_pass"
         assert TK.auto_path(k, n) == want, (k, n)
-        assert TK.launch_plan(k, 4096, n).path == want
+        plan = TK.launch_plan(k, 4096, n)
+        assert plan.path == want
+        assert (plan.variant is None) == (want == "two_pass")
+        if 64 < k <= last_single:
+            assert plan.variant == "smem"
+    assert TK.launch_plan(64, TK.WARP_MAX_PAIRS + 1, n).variant == "smem"
 
 
 def test_variant_shared_memory_models():

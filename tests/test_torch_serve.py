@@ -269,6 +269,28 @@ def test_launch_program_equals_the_eager_aggregate(backend):
         program.stage(list(x)[:3], a)
 
 
+def test_a_128_agent_cohort_lowers_to_the_two_pass_kernel():
+    """The service's launch program for a cohort of 128 plans the
+    two-pass kernel in one K block (the serve-cohort128 launch, here over
+    DIM columns), and its first commit is the single pass's estimate."""
+    k = 128
+    svc, _ = make_service(backend="pallas", k_min=k)
+    rng = np.random.default_rng(5)
+    rows = rng.normal(size=(k, DIM)).astype(np.float32)
+    rows[-16:] += 1000.0
+    for agent in range(k):
+        svc.submit(upd(agent, payload=torch.from_numpy(rows[agent])))
+    assert svc.round == 1
+    (program,) = svc.exec_cache.programs()
+    assert program.plan == mm_aggregate.launch_plan(k, DIM, 1)
+    assert program.plan.path == "two_pass"
+    assert program.plan.num_k_blocks == 1
+    single = mm_aggregate.mm_aggregate_2d(
+        torch.from_numpy(rows), torch.ones(k), path="single")
+    np.testing.assert_allclose(np.asarray(svc.model), single.numpy(),
+                               atol=1e-5, rtol=1e-6)
+
+
 def test_lower_launch_shares_given_static_inputs_and_checks_them():
     engine = ops.AggregationEngine()
     lowered = engine.lower_launch(4, 10, device="cpu")

@@ -62,6 +62,26 @@ def test_two_pass_single_block_matches_kernel_and_oracle(k, m, n, weighted):
     np.testing.assert_allclose(got, oracle, atol=1e-5, rtol=RTOL)
 
 
+@pytest.mark.parametrize("k", [65, 128, 301])
+def test_one_block_two_pass_agrees_with_the_single_pass_and_reference(k):
+    """Up to 512 agents the two-pass kernel sorts one K block: weighted,
+    the same estimate as the single pass (only the order of the IRLS sums
+    differs) and as the JAX kernel, whichever path ``auto_path`` takes
+    (128 and 301: the two-pass kernel; 65 at N = 2: the single pass)."""
+    x, a = make(k, 97, 2, seed=3 * k)
+    assert TK.launch_plan(k, 97, 2, path="two_pass").num_k_blocks == 1
+    xt, at = torch.from_numpy(x), torch.from_numpy(a)
+    got = TK.mm_aggregate_batched_2d(xt, at, path="two_pass").numpy()
+    single = TK.mm_aggregate_batched_2d(xt, at, path="single").numpy()
+    auto = TK.mm_aggregate_batched_2d(xt, at).numpy()
+    want = np.asarray(JK.mm_aggregate_batched_2d(
+        jnp.asarray(x), jnp.asarray(a), interpret=True))
+    np.testing.assert_allclose(got, single, atol=1e-5, rtol=RTOL)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=RTOL)
+    np.testing.assert_array_equal(
+        auto, got if TK.auto_path(k, 2) == "two_pass" else single)
+
+
 def test_two_pass_plain_reads_only_valid_rows():
     """+inf sentinel rows and zero M columns never reach the estimate."""
     x, a = make(65, 37, 1, seed=8)

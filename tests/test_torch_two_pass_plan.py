@@ -30,11 +30,39 @@ def test_heuristic_picks_the_widest_block_that_fits_and_fills_the_card(
 
 
 def test_a_forced_two_pass_path_takes_a_two_pass_tile():
-    """K = 128 takes the single pass by itself (bm = 256); forced to
-    two-pass, the plan asks the heuristic for that path's block."""
-    assert TK.launch_plan(128, 2049, 1).block_m == 256
-    plan = TK.launch_plan(128, 2049, 1, path="two_pass")
-    assert plan.block_m == 8 and plan.block_k == 128
+    """K = 64 takes the single pass by itself (bm = 256); forced to
+    two-pass, the plan asks the heuristic for that path's block.  K = 128
+    takes the two-pass kernel by itself; forced to the single pass, the
+    single pass's tile."""
+    assert TK.launch_plan(64, 2049, 1).block_m == 256
+    plan = TK.launch_plan(64, 2049, 1, path="two_pass")
+    assert plan.block_m == 8 and plan.block_k == 64
+    plan = TK.launch_plan(128, 2049, 1)
+    assert plan.path == "two_pass" and plan.block_m == 8
+    plan = TK.launch_plan(128, 2049, 1, path="single")
+    assert plan.variant == "smem" and plan.block_m == 256
+
+
+@pytest.mark.parametrize("n", [1, 3, 32])
+def test_auto_two_pass_sorts_one_k_block_up_to_512_agents(n):
+    """Every launch with nothing pinned that the crossover sends to the
+    two-pass kernel with K <= 512 sorts the whole K axis as one block, so
+    its start is the exact weighted median and MAD, not the
+    median-of-medians of several blocks; K > 512 keeps 512-row blocks."""
+    two = [k for k in range(65, 513) if TK.auto_path(k, n) == "two_pass"]
+    assert two == list(range(two[0], 513))
+    for k in two:
+        bk = TK.next_pow2(k)
+        for m in (7, 4096, 15_730_944):
+            plan = TK.launch_plan(k, m, n)
+            assert plan.path == "two_pass", (k, m, n)
+            assert plan.num_k_blocks == 1 and plan.block_k == bk >= k
+            assert plan.smem_bytes <= BUDGET
+        assert tuning.heuristic_choice(k, 4096, n).block_k == bk
+    for k in (513, 1024, 4096):
+        plan = TK.launch_plan(k, 4096, n)
+        assert plan.path == "two_pass" and plan.block_k == 512
+        assert plan.num_k_blocks == -(-k // 512)
 
 
 @pytest.mark.parametrize("block_m", [0, 3, 16, 32, 64])
