@@ -44,7 +44,14 @@ Phases, each printing one JSON line (any failure exits nonzero):
               last block of one row; a massless middle K block; ties,
               the MAD floor and ragged M; blocks of 8, 4, 2 and 1
               columns.  One summary line per kernel, variant and dtype,
-              with its first failing cases.
+              with its first failing cases.  The finiteness check
+              (ops.any_nonfinite, csrc/finite.cu) against
+              torch.isfinite(x).all() and its plain version: lengths
+              around the vector width at storage offsets 0-3, NaN, +inf
+              and -inf first, middle and last, f32, bf16 and the dtypes
+              that take torch.isfinite; a 3.0 GB f32 payload, one layer's
+              share and a bf16 tensor of more than 2^31 bytes, each
+              timed beside its bytes over 3.35 TB/s (one more line).
   4 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
               K=32 fully connected, d=10, 1 attacker at delta=1000, 500
               steps) on the kernel backend: steady MSD < 1e-2; the mean
@@ -139,11 +146,14 @@ Phases, each printing one JSON line (any failure exits nonzero):
               AggregationEngine.aggregate of the same cohort and within
               the parity tolerance of the plain version over every
               column.  Per commit: submit-to-commit time and the device
-              times of staging, replay, outlier check and clip.
+              times of staging, replay, outlier check and clip.  Every
+              finiteness check on the kernel (ops.FINITE_LAUNCHES): the
+              initial model's, then one a submit and one a commit.
  13 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
               layer (M = 15,730,944), the last 16 agents shifted by
               1000, two commits: the two-pass kernel in one 128-row K
-              block, held to its plain version.
+              block, held to its plain version; the finiteness checks
+              counted as in serve_width.
  14 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
               1024, vocab 151,936 padded to 152,064, 751,894,528 f32
               parameters in 14 leaves, bf16 activations) randomly
@@ -304,7 +314,13 @@ launches made to time a kernel or compare it with its plain version are
 not counted.  bound_ms is the larger of the bytes the function must move
 over 3.35 TB/s and its f32 operations (mm_ops) over 67 TFLOP/s (H100 SXM
 data sheet).  No single PyTorch call computes an MM estimate, so
-library_ms is null.
+library_ms is null.  The finite_scan entries (serve_width's and
+serve_cohort's: the service's finiteness checks, ops.any_nonfinite) take
+their launches from the same main-path runs, bound_ms from the payload's
+bytes alone, library_ms from torch.isfinite(x).all(), the check they
+replaced, and aminmax_ms from torch.aminmax(x), one library read of x;
+their parity_max_abs_err counts the parity phase's finiteness cases
+that disagreed with torch.isfinite.
 """
 
 from __future__ import annotations
@@ -357,6 +373,17 @@ PARITY_EDGES = ((10, 1, False, "contaminated"), (10, 5, True, "ties"),
                 (4099, 32, True, "contaminated"), (4099, 1, True, "all_equal"),
                 (65536, 1, False, "all_equal"), (65536, 5, True, "ties"),
                 (65539, 1, True, "contaminated"))
+# finiteness-check parity (ops.any_nonfinite): lengths around the 16-byte
+# vector of f32 (4) and bf16 (8) elements, views at storage offsets 0-3,
+# NaN, +inf and -inf first, in the middle and last; the service's widths
+# (one 3.0 GB f32 payload, one layer's share) and a bf16 tensor of more
+# than 2^31 bytes
+FINITE_LENGTHS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 15, 16, 17, 33, 1000, 4099,
+                  (1 << 20) + 3)
+FINITE_OFFSETS = (0, 1, 2, 3)
+FINITE_SPECIALS = (float("nan"), float("inf"), float("-inf"))
+FINITE_WIDE = (("f32", 751_894_528), ("f32", 15_730_944),
+               ("bf16", (1 << 30) + 3))
 # two-pass parity cases (K, M, N, weighted, block_k, kind): the first
 # slice's; the cohort's; the (K, N) the first kernel could not fit; 16,
 # 18 and 64 K blocks; a last block of one row; a massless middle block;
@@ -609,10 +636,14 @@ class Smoke:
         self.args = args
         self.dev = torch.device("cuda")
         self.kernels = {}          # entry name -> kernels-line dict
-        self.parity_err = {"single_pass": 0.0, "two_pass": 0.0}
+        # the worst parity error of each kernel; finite_scan's is its
+        # parity cases whose verdict disagreed with torch.isfinite
+        self.parity_err = {"single_pass": 0.0, "two_pass": 0.0,
+                           "finite_scan": 0}
         self.busy_kernels = None   # device_busy_share's last kernel count
         self.busy_top = None       # and its top kernels by device time
         self.by_shape = {}         # main_path's launches by (kernel, K, M, N)
+        self.finite_launches = 0   # and its finiteness checks on the card
         # every (variant or "two_pass", K, M, N) a main path launched: the
         # contracts check holds each one's KernelCall to the C query
         self.kernel_shapes = set()
@@ -694,14 +725,19 @@ class Smoke:
     def main_path(self, fn):
         """Run fn with every launch count set to 0; (result, its counts,
         the single-pass launches by variant).  Its launches by (variant
-        or "two_pass", K, M, N) are left in ``self.by_shape``."""
+        or "two_pass", K, M, N) are left in ``self.by_shape``, its
+        finiteness checks launched on the card (ops.FINITE_LAUNCHES) in
+        ``self.finite_launches``."""
+        from repro_torch.kernels import ops
         for counts in self._counts():
             counts.update(dict.fromkeys(counts, 0))
         self._counts()[2].clear()
+        ops.FINITE_LAUNCHES = 0
         result = fn()
         self.torch.cuda.synchronize()
         launches, by_variant, by_shape = self._counts()
         self.by_shape = dict(by_shape)
+        self.finite_launches = ops.FINITE_LAUNCHES
         self.kernel_shapes.update(key for key, n in by_shape.items() if n)
         return result, dict(launches), dict(by_variant)
 
@@ -1005,9 +1041,122 @@ class Smoke:
                   "max_abs_err": g["max_abs_err"],
                   "failed": g["failed"][:5], "n_failed": len(g["failed"])})
         bad = sum(len(g["failed"]) for g in groups.values())
+        self.parity_err["finite_scan"] = self.finite_parity()
+        bad += self.parity_err["finite_scan"]
         if bad:
             raise AssertionError(f"{bad} parity cases disagree with the "
                                  "plain version")
+
+    def finite_parity(self) -> int:
+        """ops.any_nonfinite on the card against torch.isfinite(x).all()
+        and the kernel's plain version: every FINITE_LENGTHS x
+        FINITE_OFFSETS view of f32 and bf16, finite and with each special
+        at its first, middle and last element; f16, int32 and strided
+        views, which it has to refuse; then FINITE_WIDE, each special
+        last, first and in the middle, each timed as measure_finite times
+        the service's checks.  Returns the failed cases."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+        failed, cases = [], 0
+        launches0 = ops.FINITE_LAUNCHES
+
+        def check(x, label):
+            nonlocal cases
+            cases += 1
+            want = not bool(torch.isfinite(x).all())
+            got = bool(ops.any_nonfinite(x))
+            plain = bool(ops.any_nonfinite_plain(x))
+            if got != want or plain != want:
+                failed.append(dict(label, got=got, want=want, plain=plain))
+
+        def refused(x, label):
+            nonlocal cases
+            cases += 1
+            try:
+                ops.any_nonfinite(x)
+            except ValueError:
+                return
+            failed.append(dict(label, got="no error", want="ValueError"))
+
+        for name, dtype in dtypes.items():
+            for n in FINITE_LENGTHS:
+                for off in FINITE_OFFSETS:
+                    base = (torch.arange(n + off, device=self.dev) % 251).to(dtype)
+                    view = base[off:]
+                    label = {"dtype": name, "n": n, "offset": off}
+                    check(view, dict(label, special=None))
+                    if n == 0:
+                        continue
+                    for v in FINITE_SPECIALS:
+                        for i in {0, n // 2, n - 1}:
+                            view[i] = v
+                            check(view, dict(label, special=v, at=i))
+                            view[i] = 0
+            refused(torch.zeros(1001, device=self.dev, dtype=dtype)[1::2],
+                    {"dtype": name, "strided": True})
+        for dtype in (torch.float16, torch.int32):
+            refused(torch.zeros(64, device=self.dev, dtype=dtype),
+                    {"dtype": str(dtype)})
+        timings = []
+        for name, n in FINITE_WIDE:
+            x = torch.zeros(n, device=self.dev, dtype=dtypes[name])
+            for v in FINITE_SPECIALS:
+                for i in (n - 1, 0, n // 2):
+                    x[i] = v
+                    check(x, {"dtype": name, "n": n, "special": v, "at": i})
+                    x[i] = 0
+            check(x, {"dtype": name, "n": n, "special": None})
+            x[n - 1] = float("nan")
+            check(x[1:], {"dtype": name, "n": n - 1, "offset": 1,
+                          "special": "nan", "at": n - 2})
+            x[n - 1] = 0
+            entry = self.measure_finite(None, f"{name} {n}", x, 0)
+            timings.append({k: entry[k] for k in (
+                "shape", "bytes", "ms", "call_ms", "profiler_ms", "bound_ms",
+                "library_ms", "aminmax_ms", "profiler_kernels")})
+            del x
+            torch.cuda.empty_cache()
+        emit({"phase": "parity", "kernel": "finite_scan", "cases": cases,
+              "n_failed": len(failed), "failed": failed[:5],
+              "launches": ops.FINITE_LAUNCHES - launches0,
+              "timings": timings})
+        return len(failed)
+
+    def measure_finite(self, key, label, x, launches):
+        """A finite_scan entry of the kernels line (recorded under ``key``
+        unless it is None): ops.any_nonfinite on x timed as the other
+        entries time their kernel -- ``ms`` over back-to-back checks,
+        ``call_ms`` one at a time, ``profiler_ms`` finite_scan's
+        torch.profiler device time -- beside x's bytes over 3.35 TB/s,
+        the check the service ran before (``library_ms``:
+        torch.isfinite(x).all()) and a library reduction that also reads x
+        once (``aminmax_ms``: torch.aminmax(x) alone, before a verdict is
+        drawn from its two values), with ``launches`` from the main-path
+        run that gave the shape.  ``max_abs_err`` is 1 where its verdict
+        on x differs from torch.isfinite's, else 0."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        check = lambda: ops.any_nonfinite(x)
+        err = abs(int(check()) - int(not bool(torch.isfinite(x).all())))
+        call_ms, _ = self.time_ms(check)
+        ms, _ = self.kernel_ms(check)
+        _, by_name = self.profiler_ms(check)
+        prof = sum(t for k, t in by_name.items() if "finite_scan" in k)
+        library, _ = self.kernel_ms(lambda: torch.isfinite(x).all(), 10)
+        aminmax, _ = self.kernel_ms(lambda: torch.aminmax(x), 10)
+        nbytes = x.numel() * x.element_size()
+        entry = dict(
+            name=key, shape=label, variant="finite_scan", launches=launches,
+            source="src/repro_torch/kernels/csrc/finite.cu",
+            replaces="none: src/repro/serve/buffer.py:90 (np.isfinite)",
+            max_abs_err=err, ms=ms, call_ms=call_ms, profiler_ms=prof or None,
+            profiler_kernels=by_name, plain_ms=None,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=library, aminmax_ms=aminmax, bytes=nbytes)
+        if key is not None:
+            self.kernels[key] = entry
+        return entry
 
     def captured_run(self, spec):
         """A spec's captured run held to the eager loop: runner.loop on
@@ -1927,12 +2076,16 @@ class Smoke:
         torch = self.torch
         from repro_torch.serve import (AgentUpdate, AggregationService,
                                        ServeConfig, SimClock)
+        from repro_torch.kernels import ops
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        before = ops.FINITE_LAUNCHES
         svc = AggregationService(
             torch.zeros((m,), device=self.dev),
             config=ServeConfig(k_min=k, deadline_s=1.0, backend="pallas"),
             clock=SimClock(), device="cuda")
+        # the initial model's finiteness check: one kernel launch
+        assert ops.FINITE_LAUNCHES - before == 1, ops.FINITE_LAUNCHES
         g = torch.Generator(device=self.dev).manual_seed(seed)
         out = []
 
@@ -2001,6 +2154,8 @@ class Smoke:
         assert svc.telemetry.launch_replays == 3
         assert counts == {"single_pass": 4, "two_pass": 0}, counts
         assert variants["regs"] == 4, variants
+        # one finiteness check a submit (admit) and one a commit (guard)
+        assert self.finite_launches == 3 * k + 3, self.finite_launches
         assert check["eager_equal"], check
         assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
         (program,) = svc.exec_cache.programs()
@@ -2009,8 +2164,15 @@ class Smoke:
             f"K={k} M={m} N=1 f32 (service, graph replay)", program,
             stats["exec_cache_replays"], check["max_abs_err_all_columns"],
             check["plain_ms"])
+        finite = self.measure_finite(
+            "finite_scan (serve, Qwen3-0.6B width)",
+            f"f32 {m} (one payload of the service)", program.x[0],
+            self.finite_launches)
         emit({"phase": "serve_width", "m": m, "k": k, "stats": stats,
-              "launches": counts, "variant": program.plan.variant,
+              "launches": counts, "finite_launches": self.finite_launches,
+              "finite_ms": finite["ms"],
+              "finite_profiler_ms": finite["profiler_ms"],
+              "variant": program.plan.variant,
               "eager_equal": check["eager_equal"],
               "max_abs_err_all_columns": check["max_abs_err_all_columns"],
               "ms": entry["ms"], "call_ms": entry["call_ms"],
@@ -2038,6 +2200,8 @@ class Smoke:
         assert (stats["exec_cache_compiles"],
                 stats["exec_cache_replays"]) == (1, 2), stats
         assert counts == {"single_pass": 0, "two_pass": 3}, counts
+        # one finiteness check a submit (admit) and one a commit (guard)
+        assert self.finite_launches == 2 * k + 2, self.finite_launches
         assert check["eager_equal"], check
         assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
         (program,) = svc.exec_cache.programs()
@@ -2048,8 +2212,15 @@ class Smoke:
             f"K={k} M={m} N=1 f32 (service, graph replay)", program,
             stats["exec_cache_replays"], check["max_abs_err_all_columns"],
             check["plain_ms"])
+        finite = self.measure_finite(
+            "finite_scan (serve, 128-client cohort layer)",
+            f"f32 {m} (one payload of the service)", program.x[0],
+            self.finite_launches)
         emit({"phase": "serve_cohort", "m": m, "k": k, "stats": stats,
-              "launches": counts, "path": program.plan.path,
+              "launches": counts, "finite_launches": self.finite_launches,
+              "finite_ms": finite["ms"],
+              "finite_profiler_ms": finite["profiler_ms"],
+              "path": program.plan.path,
               "block_m": program.plan.block_m,
               "block_k": program.plan.block_k,
               "num_k_blocks": program.plan.num_k_blocks,
@@ -3002,7 +3173,8 @@ class Smoke:
             self._query_kernel_shapes()
         rows = []
         for entry in self.kernels.values():
-            kernel = "two_pass" if "two_pass" in entry["name"] else "single_pass"
+            kernel = next((k for k in ("finite_scan", "two_pass")
+                           if k in entry["name"]), "single_pass")
             assert entry["launches"] > 0, entry
             rows.append(dict(entry, route="cuda",
                              parity_max_abs_err=self.parity_err[kernel]))

@@ -30,7 +30,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torc
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library name -> its source; each library exports the C functions below
-SOURCES = {"mm_single_pass": "mm_single_pass.cu", "mm_two_pass": "mm_two_pass.cu"}
+SOURCES = {"mm_single_pass": "mm_single_pass.cu", "mm_two_pass": "mm_two_pass.cu",
+           "finite": "finite.cu"}
 
 _P, _I, _I64, _F, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float, ctypes.c_size_t)
@@ -48,6 +49,9 @@ _SIGNATURES = {
         "mm_two_pass_blocks": (_I, [_I, _I, _I64, _I, _I, _I, _I, _I, _P]),
         "mm_two_pass_config": (_I, [_I, _I, _I64, _I, _I, _I, _I, _I, _P, _P,
                                     _I]),
+    },
+    "finite": {
+        "finite_check_launch": (_I, [_P, _I, _I64, _I64, _I64, _P, _P, _I]),
     },
 }
 

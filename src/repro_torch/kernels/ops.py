@@ -58,6 +58,10 @@ Inside a ``record_workloads()`` scope every launch appends its resolved
 workload (K, M, N, dtype, backend, block sizes, path) once; the scenario
 runner builds its launch audit from those records.
 
+``any_nonfinite(x)`` is the finiteness check of the streaming service
+(its admission gate, its estimate guard and its initial model): one read
+of a CUDA tensor by the kernel of ``csrc/finite.cu``, one 4-byte flag.
+
 ``autotune=True`` runs ``tuning.autotune``'s sweep the first time the
 engine meets a (K, M, N, dtype) on a device (never while a CUDA graph
 is being captured), so the plan each launch takes, and records, is the
@@ -75,6 +79,7 @@ import torch
 
 from repro_torch import devices, pytree
 from repro_torch.core import location, mestimators
+from repro_torch.kernels import build
 from repro_torch.kernels import mm_aggregate as _k
 from repro_torch.kernels import tuning
 
@@ -654,3 +659,84 @@ def mm_aggregate_tree(tree, a: Optional[torch.Tensor] = None, *,
     """Aggregate a pytree of stacked (K, ...) leaves in ONE kernel launch."""
     return _engine(num_iters, c, block_m, block_k, backend,
                    path).aggregate_tree(tree, a)
+
+
+# ---------------------------------------------------------------------------
+# finiteness
+# ---------------------------------------------------------------------------
+
+# finiteness checks launched on the card by any_nonfinite
+FINITE_LAUNCHES = 0
+# the kernel's dtypes: their C codes, the integer type of their bits and
+# the exponent field (all ones: NaN, +inf or -inf)
+_FINITE_BITS = {torch.float32: (0, torch.int32, 0x7F800000),
+                torch.bfloat16: (1, torch.int16, 0x7F80)}
+# zeroed int32 flags, each handed to one check and never again, made
+# _FLAG_BLOCK at a time per (device, stream): a check allocates and clears
+# nothing of its own
+_FLAG_BLOCK = 256
+_FLAGS: dict = {}
+
+
+def finite_split(ptr: int, n: int, itemsize: int) -> tuple:
+    """(head, n_vec, tail): the ``n`` elements of ``itemsize`` bytes at
+    address ``ptr`` as the kernel reads them, the elements before the
+    first 16-byte boundary, then whole 16-byte vectors, then the rest."""
+    if ptr % itemsize:
+        raise ValueError(f"address {ptr:#x} is not aligned to its "
+                         f"{itemsize}-byte elements")
+    per_vec = 16 // itemsize
+    head = min(-ptr % 16 // itemsize, n)
+    n_vec = (n - head) // per_vec
+    return head, n_vec, n - head - n_vec * per_vec
+
+
+def any_nonfinite_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's test in plain PyTorch, for an f32 or bf16 tensor: some
+    element's exponent field is all ones."""
+    _, bits, exponent = _FINITE_BITS[x.dtype]
+    return ((x.reshape(-1).view(bits) & exponent) == exponent).any()
+
+
+def _fresh_flag(device: torch.device, stream: int) -> torch.Tensor:
+    """A zeroed 0-d int32 flag on ``device`` that no other check has had;
+    a new block is zeroed on ``stream``, ahead of the checks it serves."""
+    flags = _FLAGS.get((device.index, stream))
+    if not flags:
+        flags = _FLAGS[(device.index, stream)] = list(torch.zeros(
+            _FLAG_BLOCK, dtype=torch.int32, device=device).unbind())
+    return flags.pop()
+
+
+def any_nonfinite(x: torch.Tensor) -> torch.Tensor:
+    """A 0-d int32 tensor on ``x``'s device, 1 where ``x`` holds a NaN,
+    +inf or -inf and 0 where it does not: ``not torch.isfinite(x).all()``.
+    Nothing waits for it; its ``bool()`` is the one host wait.
+
+    A CUDA tensor is read once by the hand-written kernel
+    (``csrc/finite.cu``), one launch that raises a 4-byte flag and writes
+    nothing else; it has to be a contiguous f32 or bf16 tensor, and any
+    other CUDA tensor raises.  A CPU tensor takes ``torch.isfinite``."""
+    global FINITE_LAUNCHES
+    if x.device.type != "cuda":
+        return torch.isfinite(x).all().logical_not().to(torch.int32)
+    if x.dtype not in _FINITE_BITS or not x.is_contiguous():
+        raise ValueError(
+            f"the finiteness kernel reads contiguous float32 or bfloat16 "
+            f"CUDA tensors, not a {'' if x.is_contiguous() else 'strided '}"
+            f"{x.dtype} one")
+    # the raw handle of the current stream: what
+    # torch.cuda.current_stream().cuda_stream gives, without building a
+    # Stream object (6-8 us a call, a sixth of a 63 MB check on the card)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    flag = _fresh_flag(x.device, stream)
+    ptr, n = x.data_ptr(), x.numel()
+    if n:
+        err = build.library("finite").finite_check_launch(
+            ptr, _FINITE_BITS[x.dtype][0],
+            *finite_split(ptr, n, x.element_size()), flag.data_ptr(), stream,
+            x.device.index)
+        if err:
+            raise RuntimeError(f"finite_check launch failed: cudaError {err}")
+        FINITE_LAUNCHES += 1
+    return flag

@@ -34,6 +34,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.tracing import PhaseTimer
 
 
@@ -98,9 +99,9 @@ class CohortBuffer:
             return "rejected_stale"
         # the check's end event goes before the host waits for its answer
         token = self.timer.begin("admit")
-        finite = torch.isfinite(update.payload).all()
+        nonfinite = ops.any_nonfinite(update.payload)
         self.timer.end(token)
-        if not bool(finite):
+        if bool(nonfinite):
             self._last_seq[update.agent_id] = update.seq
             return "rejected_invalid"
         superseding = update.agent_id in self._pending

@@ -247,11 +247,11 @@ class ExecutableCache:
 
 
 def _as_vector(x, device) -> torch.Tensor:
-    """A flat float32 tensor on ``device`` (a view where ``x`` already is
-    one)."""
+    """A flat contiguous float32 tensor on ``device`` (a view where ``x``
+    already is one)."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.asarray(x, dtype=np.float32))
-    return t.to(device=device, dtype=torch.float32).reshape(-1)
+    return t.to(device=device, dtype=torch.float32).reshape(-1).contiguous()
 
 
 def cohort_weights(entries: List[Pending], config: ServeConfig,
@@ -331,7 +331,7 @@ class AggregationService:
             else PhaseTimer(self.device.type == "cuda")
         self.clock = clock if clock is not None else WallClock()
         self._w = _as_vector(model0, self.device).clone()
-        if not bool(torch.isfinite(self._w).all()):
+        if bool(ops.any_nonfinite(self._w)):
             raise ValueError("initial model must be finite")
         self.round = 0
         self.dim = self._w.shape[0]
@@ -763,9 +763,9 @@ class AggregationService:
                 "launch_attempts_exhausted", err.attempts)
             return self._carry(len(entries), ids, consumed=entries)
         token = self.timer.begin("guard")
-        finite = torch.isfinite(result).all()
+        nonfinite = ops.any_nonfinite(result)
         self.timer.end(token)
-        if not bool(finite):
+        if bool(nonfinite):
             self.telemetry.count("nonfinite_rejected")
             return self._carry(len(entries), ids, consumed=entries)
 
