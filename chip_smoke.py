@@ -52,6 +52,15 @@ Phases, each printing one JSON line (any failure exits nonzero):
               that take torch.isfinite; a 3.0 GB f32 payload, one layer's
               share and a bf16 tensor of more than 2^31 bytes, each
               timed beside its bytes over 3.35 TB/s (one more line).
+              The service's norms after a commit (ops.residual_norms,
+              csrc/residual.cu) against their plain version and a float64
+              sum of the same f32 differences (within 2 ulp): 1 to 513
+              rows at lengths 0 to 2^20 + 3, rows and centre at storage
+              offsets 0-3, a Byzantine row (+1000), the same bits on a
+              repeat; then 9 rows of 751,894,528 (serve-k8's 8 payloads
+              and the model) and 129 of 15,730,944 (cohort128's), each
+              timed beside its bytes over 3.35 TB/s and the eager
+              vector_norm(row - center) loop it replaced (one more line).
   4 paper     repro_torch.scenarios.run on the paper's C3 spec (diffusion,
               K=32 fully connected, d=10, 1 attacker at delta=1000, 500
               steps) on the kernel backend: steady MSD < 1e-2; the mean
@@ -148,12 +157,13 @@ Phases, each printing one JSON line (any failure exits nonzero):
               column.  Per commit: submit-to-commit time and the device
               times of staging, replay, outlier check and clip.  Every
               finiteness check on the kernel (ops.FINITE_LAUNCHES): the
-              initial model's, then one a submit and one a commit.
+              initial model's, then one a submit and one a commit; one
+              residual-norm launch a commit (ops.RESIDUAL_LAUNCHES).
  13 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
               layer (M = 15,730,944), the last 16 agents shifted by
               1000, two commits: the two-pass kernel in one 128-row K
               block, held to its plain version; the finiteness checks
-              counted as in serve_width.
+              and residual-norm launches counted as in serve_width.
  14 lm_train  the LM substrate: full-size Qwen3-0.6B (28 layers, d_model
               1024, vocab 151,936 padded to 152,064, 751,894,528 f32
               parameters in 14 leaves, bf16 activations) randomly
@@ -384,6 +394,13 @@ FINITE_OFFSETS = (0, 1, 2, 3)
 FINITE_SPECIALS = (float("nan"), float("inf"), float("-inf"))
 FINITE_WIDE = (("f32", 751_894_528), ("f32", 15_730_944),
                ("bf16", (1 << 30) + 3))
+# residual-norm parity (ops.residual_norms): row counts around the
+# kernel's 16 rows a pass, lengths around its 16-byte vector; then the
+# services' commits, (rows, M): serve-k8's 8 payloads and the model, and
+# cohort128's 128 and the model
+RESIDUAL_ROWS = (1, 2, 9, 16, 17, 129, 513)
+RESIDUAL_LENGTHS = (0, 1, 5, 4099, (1 << 20) + 3)
+RESIDUAL_WIDE = ((9, 751_894_528), (129, 15_730_944))
 # two-pass parity cases (K, M, N, weighted, block_k, kind): the first
 # slice's; the cohort's; the (K, N) the first kernel could not fit; 16,
 # 18 and 64 K blocks; a last block of one row; a massless middle block;
@@ -639,11 +656,12 @@ class Smoke:
         # the worst parity error of each kernel; finite_scan's is its
         # parity cases whose verdict disagreed with torch.isfinite
         self.parity_err = {"single_pass": 0.0, "two_pass": 0.0,
-                           "finite_scan": 0}
+                           "finite_scan": 0, "residual": 0}
         self.busy_kernels = None   # device_busy_share's last kernel count
         self.busy_top = None       # and its top kernels by device time
         self.by_shape = {}         # main_path's launches by (kernel, K, M, N)
         self.finite_launches = 0   # and its finiteness checks on the card
+        self.residual_launches = 0  # and its residual-norm launches
         # every (variant or "two_pass", K, M, N) a main path launched: the
         # contracts check holds each one's KernelCall to the C query
         self.kernel_shapes = set()
@@ -727,17 +745,20 @@ class Smoke:
         the single-pass launches by variant).  Its launches by (variant
         or "two_pass", K, M, N) are left in ``self.by_shape``, its
         finiteness checks launched on the card (ops.FINITE_LAUNCHES) in
-        ``self.finite_launches``."""
+        ``self.finite_launches``, its residual-norm launches
+        (ops.RESIDUAL_LAUNCHES) in ``self.residual_launches``."""
         from repro_torch.kernels import ops
         for counts in self._counts():
             counts.update(dict.fromkeys(counts, 0))
         self._counts()[2].clear()
         ops.FINITE_LAUNCHES = 0
+        ops.RESIDUAL_LAUNCHES = 0
         result = fn()
         self.torch.cuda.synchronize()
         launches, by_variant, by_shape = self._counts()
         self.by_shape = dict(by_shape)
         self.finite_launches = ops.FINITE_LAUNCHES
+        self.residual_launches = ops.RESIDUAL_LAUNCHES
         self.kernel_shapes.update(key for key, n in by_shape.items() if n)
         return result, dict(launches), dict(by_variant)
 
@@ -1043,6 +1064,8 @@ class Smoke:
         bad = sum(len(g["failed"]) for g in groups.values())
         self.parity_err["finite_scan"] = self.finite_parity()
         bad += self.parity_err["finite_scan"]
+        self.parity_err["residual"] = self.residual_parity()
+        bad += self.parity_err["residual"]
         if bad:
             raise AssertionError(f"{bad} parity cases disagree with the "
                                  "plain version")
@@ -1154,6 +1177,100 @@ class Smoke:
             profiler_kernels=by_name, plain_ms=None,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=library, aminmax_ms=aminmax, bytes=nbytes)
+        if key is not None:
+            self.kernels[key] = entry
+        return entry
+
+    def residual_parity(self) -> int:
+        """ops.residual_norms on the card against its plain version
+        (rtol 1e-5: it sums squares in f32) and a float64 sum of the same
+        f32 differences (rtol 2.5e-7, 2 ulp): RESIDUAL_ROWS x
+        RESIDUAL_LENGTHS, rows and centre as views at storage offsets 0-3
+        (the 16-byte alignments the kernel meets), a row + 1000, and the
+        same bits on a repeat; one launch a call.  Then RESIDUAL_WIDE,
+        each timed by measure_residual.  Returns the failed cases."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        failed, cases, worst = [], 0, 0.0
+
+        def check(rows, center, label):
+            nonlocal cases, worst
+            cases += 1
+            before = ops.RESIDUAL_LAUNCHES
+            got = ops.residual_norms(rows, center)
+            again = ops.residual_norms(rows, center)
+            want = torch.stack([torch.linalg.vector_norm(
+                (r - center).double()) for r in rows])
+            plain = ops.residual_norms_plain(rows, center).double()
+            rel = float(((got.double() - want).abs()
+                         / want.clamp_min(1e-30)).max())
+            rel_plain = float(((got.double() - plain).abs()
+                               / plain.clamp_min(1e-30)).max())
+            worst = max(worst, rel)
+            ok = (rel <= 2.5e-7 and rel_plain <= 1e-5
+                  and bool(torch.equal(got, again))
+                  and ops.RESIDUAL_LAUNCHES - before == 2)
+            if not ok:
+                failed.append(dict(label, rel=rel, rel_plain=rel_plain,
+                                   repeat=bool(torch.equal(got, again))))
+
+        g = torch.Generator(device=self.dev).manual_seed(11)
+        for n in RESIDUAL_ROWS:
+            for m in RESIDUAL_LENGTHS:
+                x = torch.randn((n + 1, m + 3), generator=g, device=self.dev)
+                rows = [x[i, :m] for i in range(n)]
+                check(rows, x[n, 3:], {"n": n, "m": m})
+                if m > 1000:
+                    check([x[i, i % 4:i % 4 + m] for i in range(n)],
+                          x[n, 1:1 + m], {"n": n, "m": m, "offsets": True})
+                    x[n - 1, :m] += 1000.0
+                    check(rows, x[n, :m], {"n": n, "m": m, "shift": 1000.0})
+                del x
+        timings = []
+        for n, m in RESIDUAL_WIDE:
+            x = torch.randn((n + 1, m), generator=g, device=self.dev)
+            x[n - 2] += 1000.0
+            rows, center = list(x[:n].unbind()), x[n]
+            check(rows, center, {"n": n, "m": m})
+            entry = self.measure_residual(None, f"{n} x {m}", rows, center, 0)
+            timings.append({k: entry[k] for k in (
+                "shape", "bytes", "ms", "call_ms", "profiler_ms", "bound_ms",
+                "plain_ms", "profiler_kernels")})
+            del x, rows, center
+            torch.cuda.empty_cache()
+        emit({"phase": "parity", "kernel": "residual_norms", "cases": cases,
+              "n_failed": len(failed), "failed": failed[:5],
+              "max_rel_err_vs_float64": worst, "timings": timings})
+        return len(failed)
+
+    def measure_residual(self, key, label, rows, center, launches):
+        """A residual_norms entry of the kernels line (recorded under
+        ``key`` unless it is None): ops.residual_norms(rows, center)
+        timed as the other entries time their kernel -- ``ms`` over
+        back-to-back calls, ``call_ms`` one at a time, ``profiler_ms``
+        the device time of its two kernels -- beside the rows' and the
+        centre's bytes over 3.35 TB/s and the eager loop the service ran
+        before (``plain_ms``: vector_norm(row - center) row by row), with
+        ``launches`` from the main-path run that gave the shape."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        call = lambda: ops.residual_norms(rows, center)
+        eager = lambda: ops.residual_norms_plain(rows, center)
+        call_ms, got = self.time_ms(call)
+        ms, _ = self.kernel_ms(call, 10)
+        _, by_name = self.profiler_ms(call, 5)
+        prof = sum(t for k, t in by_name.items() if "residual_" in k)
+        plain_ms, plain = self.kernel_ms(eager, 3)
+        err = float(((got - plain).abs() / plain.abs().clamp_min(1e-30)).max())
+        nbytes = (len(rows) + 1) * center.numel() * 4
+        entry = dict(
+            name=key, shape=label, variant="residual_norms", launches=launches,
+            source="src/repro_torch/kernels/csrc/residual.cu",
+            replaces="none: the service's residual check and step norm",
+            max_abs_err=err, ms=ms, call_ms=call_ms, profiler_ms=prof or None,
+            profiler_kernels=by_name, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=nbytes)
         if key is not None:
             self.kernels[key] = entry
         return entry
@@ -2156,6 +2273,8 @@ class Smoke:
         assert variants["regs"] == 4, variants
         # one finiteness check a submit (admit) and one a commit (guard)
         assert self.finite_launches == 3 * k + 3, self.finite_launches
+        # one residual-norm launch a commit: the k members and the model
+        assert self.residual_launches == 3, self.residual_launches
         assert check["eager_equal"], check
         assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
         (program,) = svc.exec_cache.programs()
@@ -2168,8 +2287,16 @@ class Smoke:
             "finite_scan (serve, Qwen3-0.6B width)",
             f"f32 {m} (one payload of the service)", program.x[0],
             self.finite_launches)
+        est = svc.model
+        residual = self.measure_residual(
+            "residual_norms (serve, Qwen3-0.6B width)",
+            f"{k + 1} x {m} (the cohort and the model)",
+            [*program.x.unbind(), est], est, self.residual_launches)
         emit({"phase": "serve_width", "m": m, "k": k, "stats": stats,
               "launches": counts, "finite_launches": self.finite_launches,
+              "residual_launches": self.residual_launches,
+              "residual_ms": residual["ms"],
+              "residual_profiler_ms": residual["profiler_ms"],
               "finite_ms": finite["ms"],
               "finite_profiler_ms": finite["profiler_ms"],
               "variant": program.plan.variant,
@@ -2182,7 +2309,7 @@ class Smoke:
               "bound_by": entry["bound_by"],
               "compile_s": commits[0]["compile_s"],
               "max_memory_allocated": peak})
-        del svc, program
+        del svc, program, est
 
     def serve_cohort(self):
         m, k, bad = layer_width(), SERVE_COHORT_K, SERVE_COHORT_BAD
@@ -2202,6 +2329,8 @@ class Smoke:
         assert counts == {"single_pass": 0, "two_pass": 3}, counts
         # one finiteness check a submit (admit) and one a commit (guard)
         assert self.finite_launches == 2 * k + 2, self.finite_launches
+        # one residual-norm launch a commit: the k members and the model
+        assert self.residual_launches == 2, self.residual_launches
         assert check["eager_equal"], check
         assert check["max_abs_err_all_columns"] <= 1e-5 * 1001.0, check
         (program,) = svc.exec_cache.programs()
@@ -2216,8 +2345,16 @@ class Smoke:
             "finite_scan (serve, 128-client cohort layer)",
             f"f32 {m} (one payload of the service)", program.x[0],
             self.finite_launches)
+        est = svc.model
+        residual = self.measure_residual(
+            "residual_norms (serve, 128-client cohort layer)",
+            f"{k + 1} x {m} (the cohort and the model)",
+            [*program.x.unbind(), est], est, self.residual_launches)
         emit({"phase": "serve_cohort", "m": m, "k": k, "stats": stats,
               "launches": counts, "finite_launches": self.finite_launches,
+              "residual_launches": self.residual_launches,
+              "residual_ms": residual["ms"],
+              "residual_profiler_ms": residual["profiler_ms"],
               "finite_ms": finite["ms"],
               "finite_profiler_ms": finite["profiler_ms"],
               "path": program.plan.path,
@@ -2234,7 +2371,7 @@ class Smoke:
               "bound_by": entry["bound_by"],
               "compile_s": commits[0]["compile_s"],
               "max_memory_allocated": peak})
-        del svc, program
+        del svc, program, est
 
     # -- the LM substrate --------------------------------------------------
 
@@ -3173,7 +3310,7 @@ class Smoke:
             self._query_kernel_shapes()
         rows = []
         for entry in self.kernels.values():
-            kernel = next((k for k in ("finite_scan", "two_pass")
+            kernel = next((k for k in ("finite_scan", "two_pass", "residual")
                            if k in entry["name"]), "single_pass")
             assert entry["launches"] > 0, entry
             rows.append(dict(entry, route="cuda",

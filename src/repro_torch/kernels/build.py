@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library name -> its source; each library exports the C functions below
 SOURCES = {"mm_single_pass": "mm_single_pass.cu", "mm_two_pass": "mm_two_pass.cu",
-           "finite": "finite.cu"}
+           "finite": "finite.cu", "residual": "residual.cu"}
 
 _P, _I, _I64, _F, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float, ctypes.c_size_t)
@@ -52,6 +52,11 @@ _SIGNATURES = {
     },
     "finite": {
         "finite_check_launch": (_I, [_P, _I, _I64, _I64, _I64, _P, _P, _I]),
+    },
+    "residual": {
+        "residual_max_blocks": (_I, []),
+        "residual_norms_launch": (_I, [_P, _I, _P, _I64, _I64, _I64, _P, _I64,
+                                       _P, _P, _I]),
     },
 }
 

@@ -61,6 +61,9 @@ runner builds its launch audit from those records.
 ``any_nonfinite(x)`` is the finiteness check of the streaming service
 (its admission gate, its estimate guard and its initial model): one read
 of a CUDA tensor by the kernel of ``csrc/finite.cu``, one 4-byte flag.
+``residual_norms(rows, center)`` gives the service's norms after a
+commit, ``||row - center||`` for each row, from one read of each row by
+the kernel of ``csrc/residual.cu``.
 
 ``autotune=True`` runs ``tuning.autotune``'s sweep the first time the
 engine meets a (K, M, N, dtype) on a device (never while a CUDA graph
@@ -740,3 +743,70 @@ def any_nonfinite(x: torch.Tensor) -> torch.Tensor:
             raise RuntimeError(f"finite_check launch failed: cudaError {err}")
         FINITE_LAUNCHES += 1
     return flag
+
+
+# ---------------------------------------------------------------------------
+# residual norms
+# ---------------------------------------------------------------------------
+
+# residual-norm calls launched on the card by residual_norms
+RESIDUAL_LAUNCHES = 0
+
+
+def residual_norms_plain(rows: Sequence[torch.Tensor],
+                         center: torch.Tensor) -> torch.Tensor:
+    """The norms in plain PyTorch, one row at a time:
+    ``vector_norm(row - center)`` of each row, as an (n,) f32 tensor."""
+    return torch.stack([torch.linalg.vector_norm(r.reshape(-1)
+                                                 - center.reshape(-1))
+                        for r in rows])
+
+
+def residual_norms(rows: Sequence[torch.Tensor],
+                   center: torch.Tensor) -> torch.Tensor:
+    """``||rows[r] - center||`` for each of the n rows: an (n,) f32 tensor
+    on the centre's device.  Nothing waits for it.
+
+    Every tensor is a contiguous f32 one of the centre's length, on the
+    centre's device.  On the card the rows are read in place, each once,
+    by the kernel of ``csrc/residual.cu``: one launch over a table of the
+    rows' addresses (copied from pinned host memory on the current
+    stream) and a short one that sums its partials.  The difference is
+    taken in f32 and its squares summed in f64, in an order fixed by the
+    card, n and M, so a repeat gives the same bits.  On the CPU it is
+    ``residual_norms_plain``."""
+    global RESIDUAL_LAUNCHES
+    if not rows:
+        raise ValueError("residual_norms needs at least one row")
+    m, dev = center.numel(), center.device
+    for name, t in (("center", center),
+                    *((f"row {i}", r) for i, r in enumerate(rows))):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"residual_norms reads contiguous float32 tensors; {name} "
+                f"is a {'' if t.is_contiguous() else 'strided '}{t.dtype} "
+                "one")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the centre on {dev}")
+        if t.numel() != m:
+            raise ValueError(f"{name} has {t.numel()} elements, the centre "
+                             f"{m}")
+    if dev.type != "cuda":
+        return residual_norms_plain(rows, center)
+    n = len(rows)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = build.library("residual")
+    table = torch.empty(n, dtype=torch.int64, pin_memory=True)
+    table.numpy()[:] = [r.data_ptr() for r in rows]
+    table = table.to(dev, non_blocking=True)
+    capacity = n * lib.residual_max_blocks()
+    partials = torch.empty(capacity, dtype=torch.float64, device=dev)
+    ptr = center.data_ptr()
+    err = lib.residual_norms_launch(
+        table.data_ptr(), n, ptr, *finite_split(ptr, m, 4),
+        partials.data_ptr(), capacity, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index)
+    if err:
+        raise RuntimeError(f"residual_norms launch failed: cudaError {err}")
+    RESIDUAL_LAUNCHES += 1
+    return out

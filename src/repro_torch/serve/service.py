@@ -635,24 +635,18 @@ class AggregationService:
                     self.health_of(p.update.agent_id).score)
                 for p in entries}
 
-    def _mark_estimator_outliers(self, rows: Sequence[torch.Tensor],
-                                 entries: List[Pending],
-                                 center: torch.Tensor) -> tuple:
+    def _mark_estimator_outliers(self, r: np.ndarray,
+                                 entries: List[Pending]) -> tuple:
         """Residual check after a commit: cohort members the redescending
         loss threw out sit far outside the residual MADN band around the
         committed center; their health takes the hit, everyone else's
-        recovers.  The k residual norms are computed on the device, one
-        row at a time (one row of temporary memory), and only those k
-        numbers come to the host, where the threshold is the
-        reference's.  Anchor rows (degraded path) are not agents and are
-        excluded by construction (``entries`` only)."""
+        recovers.  ``r`` holds the members' k residual norms
+        ``||rows[i] - center||``, made on the device with the step norm
+        in one read of each row (``_launch_commit``); the threshold is
+        the reference's, on the host.  Anchor rows (degraded path) are
+        not agents and are excluded by construction (``entries`` only)."""
         if not self.config.health_gate:
             return ()
-        token = self.timer.begin("outliers")
-        k = len(entries)
-        r = torch.stack([torch.linalg.vector_norm(rows[i] - center)
-                         for i in range(k)]).cpu().numpy()
-        self.timer.end(token)
         med = float(np.median(r))
         madn = 1.4826 * float(np.median(np.abs(r - med)))
         # identical honest payloads give MADN == 0; the relative floor
@@ -769,10 +763,20 @@ class AggregationService:
             self.telemetry.count("nonfinite_rejected")
             return self._carry(len(entries), ids, consumed=entries)
 
+        # the members' residual norms (health gate on) and the step norm
+        # ||w - result|| of the trust clip, from one read of each row on
+        # the device, the model riding as the last row; one host wait
+        gate = cfg.health_gate
+        token = self.timer.begin("outliers" if gate else "clip")
+        norms = ops.residual_norms(
+            [*rows[:len(entries)], self._w] if gate else [self._w],
+            result).cpu().numpy()
+        self.timer.end(token)
+        del rows
         # the estimator's verdict on each member, before the trust clip
         # moves the reference point
-        outliers = self._mark_estimator_outliers(rows, entries, result)
-        del rows
+        outliers = self._mark_estimator_outliers(norms[:-1], entries)
+        norm = float(norms[-1])
 
         # trust-region step clip, on EVERY commit (see the reference):
         # a byzantine-majority cohort moves the model by at most
@@ -780,16 +784,13 @@ class AggregationService:
         # norms.  On the device; a clipped step is scaled in place.
         token = self.timer.begin("clip")
         clipped = False
-        delta = result - self._w
-        norm = float(torch.linalg.vector_norm(delta))
         if self._step_norm_ema is not None:
             clip = cfg.trust_factor * float(self._step_norm_ema)
             if norm > clip > 0.0:
-                result = delta.mul_(clip / norm).add_(self._w)
+                result.sub_(self._w).mul_(clip / norm).add_(self._w)
                 norm = clip
                 clipped = True
                 self.telemetry.count("step_clipped")
-        del delta
         self.timer.end(token)
         if not degraded:
             self._step_norm_ema = norm if self._step_norm_ema is None \
