@@ -114,7 +114,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
               returns each winner; (b) AggregationEngine(autotune=True)
               .aggregate_tree over K = 8 Qwen3-0.6B-shaped updates (agent 7
               +1000) and .aggregate at the cohort shape launch the winner's
-              variant/path (the workload record, LAUNCHES_BY_SHAPE), bit-
+              variant/path (the workload record, launches.COUNTS), bit-
               equal to the wrapper's launch of that plan; (c) each within
               the parity tolerance of the plain version of that plan over
               every column; (d) a second autotune without force times
@@ -156,9 +156,10 @@ Phases, each printing one JSON line (any failure exits nonzero):
               the parity tolerance of the plain version over every
               column.  Per commit: submit-to-commit time and the device
               times of staging, replay, outlier check and clip.  Every
-              finiteness check on the kernel (ops.FINITE_LAUNCHES): the
-              initial model's, then one a submit and one a commit; one
-              residual-norm launch a commit (ops.RESIDUAL_LAUNCHES).
+              finiteness check on the kernel (launches.COUNTS'
+              finite_scan): the initial model's, then one a submit and
+              one a commit; one residual-norm launch a commit (its
+              residual).
  13 serve_cohort  the service at k_min = 128 over one Qwen3-0.6B decoder
               layer (M = 15,730,944), the last 16 agents shifted by
               1000, two commits: the two-pass kernel in one 128-row K
@@ -297,9 +298,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
 The service's launches, the tree program's and the scenario runs' are
 CUDA-graph replays: the kernel wrappers count the warm-up launch before
-each capture but not the captured ones, which the program records
-(mm_aggregate.record_captured) and adds to their counts on each replay
-(ops.LaunchProgram, ops.TreeProgram, runner.ScenarioProgram); the serve entries of
+each capture but not the captured ones, whose keys the capture returns
+(ops.capture_graph) and the program counts in launches.COUNTS on each
+replay (ops.LaunchProgram, ops.TreeProgram, runner.ScenarioProgram); the serve entries of
 the kernels line take their launches from the service's own count of
 replays.  A serve entry's ``ms`` is one event pair around back-to-back
 replays of the service's program, ``call_ms`` one replay at a time.
@@ -736,36 +737,40 @@ class Smoke:
         return (sum(by_name.values()) if by_name else None), by_name
 
     @staticmethod
-    def _counts():
+    def _tally(counts):
+        """The MM launches of a launch tally (a Counter of launches.COUNTS'
+        keys): (by kernel path, single-pass by variant, by (variant or
+        "two_pass", K, M, N))."""
         from repro_torch.kernels import mm_aggregate as mk
-        return (mk.LAUNCHES, mk.LAUNCHES_BY_VARIANT, mk.LAUNCHES_BY_SHAPE)
+        by_shape = {key: n for key, n in counts.items()
+                    if key[0] in mk.MM_KERNELS and n > 0}
+        by_variant = {v: sum(n for key, n in by_shape.items() if key[0] == v)
+                      for v in mk.MM_KERNELS}
+        two_pass = by_variant.pop("two_pass")
+        return ({"single_pass": sum(by_variant.values()),
+                 "two_pass": two_pass}, by_variant, by_shape)
 
     def main_path(self, fn):
-        """Run fn with every launch count set to 0; (result, its counts,
-        the single-pass launches by variant).  Its launches by (variant
-        or "two_pass", K, M, N) are left in ``self.by_shape``, its
-        finiteness checks launched on the card (ops.FINITE_LAUNCHES) in
-        ``self.finite_launches``, its residual-norm launches
-        (ops.RESIDUAL_LAUNCHES) in ``self.residual_launches``."""
-        from repro_torch.kernels import ops
-        for counts in self._counts():
-            counts.update(dict.fromkeys(counts, 0))
-        self._counts()[2].clear()
-        ops.FINITE_LAUNCHES = 0
-        ops.RESIDUAL_LAUNCHES = 0
+        """Run fn with the launch tally emptied; (result, its MM launches
+        by kernel path, the single-pass launches by variant).  Its MM
+        launches by (variant or "two_pass", K, M, N) are left in
+        ``self.by_shape``, its finiteness checks launched on the card in
+        ``self.finite_launches``, its residual-norm launches in
+        ``self.residual_launches``."""
+        from repro_torch.kernels import launches as tally
+        tally.COUNTS.clear()
         result = fn()
         self.torch.cuda.synchronize()
-        launches, by_variant, by_shape = self._counts()
-        self.by_shape = dict(by_shape)
-        self.finite_launches = ops.FINITE_LAUNCHES
-        self.residual_launches = ops.RESIDUAL_LAUNCHES
-        self.kernel_shapes.update(key for key, n in by_shape.items() if n)
-        return result, dict(launches), dict(by_variant)
+        counts, by_variant, self.by_shape = self._tally(tally.COUNTS)
+        self.finite_launches = tally.total("finite_scan")
+        self.residual_launches = tally.total("residual")
+        self.kernel_shapes.update(self.by_shape)
+        return result, counts, by_variant
 
     def not_counted(self, fn):
         """Run fn (a comparison launch) without touching the counts."""
-        from repro_torch.kernels import mm_aggregate as mk
-        with mk.uncounted():
+        from repro_torch.kernels import launches as tally
+        with tally.uncounted():
             return fn()
 
     def measure(self, key, label, x, a, plan, counts, by_variant,
@@ -931,11 +936,11 @@ class Smoke:
         from repro_torch.analysis import __main__ as gate
         from repro_torch.analysis import contracts as C
         from repro_torch.analysis import launch_audit
-        from repro_torch.kernels import mm_aggregate as mk
+        from repro_torch.kernels import launches as tally
         tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
         try:
             path = os.path.join(tmp, "analysis.json")
-            with mk.uncounted():
+            with tally.uncounted():
                 rc = gate.main(["--root", str(HERE), "--json", path])
             with open(path) as f:
                 report = json.load(f)
@@ -1079,10 +1084,11 @@ class Smoke:
         last, first and in the middle, each timed as measure_finite times
         the service's checks.  Returns the failed cases."""
         torch = self.torch
+        from repro_torch.kernels import launches as tally
         from repro_torch.kernels import ops
         dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
         failed, cases = [], 0
-        launches0 = ops.FINITE_LAUNCHES
+        launches0 = tally.total("finite_scan")
 
         def check(x, label):
             nonlocal cases
@@ -1142,7 +1148,7 @@ class Smoke:
             torch.cuda.empty_cache()
         emit({"phase": "parity", "kernel": "finite_scan", "cases": cases,
               "n_failed": len(failed), "failed": failed[:5],
-              "launches": ops.FINITE_LAUNCHES - launches0,
+              "launches": tally.total("finite_scan") - launches0,
               "timings": timings})
         return len(failed)
 
@@ -1190,13 +1196,14 @@ class Smoke:
         same bits on a repeat; one launch a call.  Then RESIDUAL_WIDE,
         each timed by measure_residual.  Returns the failed cases."""
         torch = self.torch
+        from repro_torch.kernels import launches as tally
         from repro_torch.kernels import ops
         failed, cases, worst = [], 0, 0.0
 
         def check(rows, center, label):
             nonlocal cases, worst
             cases += 1
-            before = ops.RESIDUAL_LAUNCHES
+            before = tally.total("residual")
             got = ops.residual_norms(rows, center)
             again = ops.residual_norms(rows, center)
             want = torch.stack([torch.linalg.vector_norm(
@@ -1209,7 +1216,7 @@ class Smoke:
             worst = max(worst, rel)
             ok = (rel <= 2.5e-7 and rel_plain <= 1e-5
                   and bool(torch.equal(got, again))
-                  and ops.RESIDUAL_LAUNCHES - before == 2)
+                  and tally.total("residual") - before == 2)
             if not ok:
                 failed.append(dict(label, rel=rel, rel_plain=rel_plain,
                                    repeat=bool(torch.equal(got, again))))
@@ -1325,8 +1332,8 @@ class Smoke:
             "hit_kernels": self.busy_kernels,
             "eager_launches": eager_counts, "hit_launches": hit_counts,
             "histories_equal_eager": True,
-            "graph_launch_records": [[p.variant or "two_pass", k, m, n]
-                                     for (p, k, m), n in program.launches]}
+            "graph_launch_records": [[*key, n] for key, n
+                                     in program.launches.items()]}
 
     def paper(self):
         from repro_torch import scenarios
@@ -2193,16 +2200,16 @@ class Smoke:
         torch = self.torch
         from repro_torch.serve import (AgentUpdate, AggregationService,
                                        ServeConfig, SimClock)
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import launches as tally
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        before = ops.FINITE_LAUNCHES
+        before = tally.total("finite_scan")
         svc = AggregationService(
             torch.zeros((m,), device=self.dev),
             config=ServeConfig(k_min=k, deadline_s=1.0, backend="pallas"),
             clock=SimClock(), device="cuda")
         # the initial model's finiteness check: one kernel launch
-        assert ops.FINITE_LAUNCHES - before == 1, ops.FINITE_LAUNCHES
+        assert tally.total("finite_scan") - before == 1, tally.COUNTS
         g = torch.Generator(device=self.dev).manual_seed(seed)
         out = []
 
@@ -2458,6 +2465,7 @@ class Smoke:
         leaf, each distinct (K, M, 1) leaf shape a kernels-line entry."""
         torch = self.torch
         from repro_torch import configs, pytree
+        from repro_torch.kernels import launches as tally
         from repro_torch.kernels import mm_aggregate as mk
         from repro_torch.launch import train
         from repro_torch.models import model as M
@@ -2481,7 +2489,7 @@ class Smoke:
 
         def run_steps():
             for i, batch in enumerate(batches):
-                before = [dict(c) for c in self._counts()]
+                before = tally.COUNTS.copy()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
@@ -2489,9 +2497,8 @@ class Smoke:
                 torch.cuda.synchronize()
                 host_ms = (time.perf_counter() - t0) * 1e3
                 step_peak = torch.cuda.max_memory_allocated()
-                launches, variants, by_shape = (
-                    {key: c[key] - b.get(key, 0) for key in c}
-                    for c, b in zip(self._counts(), before))
+                launches, variants, by_shape = self._tally(
+                    tally.COUNTS - before)
                 rows.append({"phase": phase, "step": i + 1,
                              "host_ms": host_ms, "device_ms": step.phase_ms(),
                              "loss": float(m["loss"]),
@@ -3029,7 +3036,7 @@ class Smoke:
         torch = self.torch
         from repro_torch import configs
         from repro_torch.configs.base import InputShape
-        from repro_torch.kernels import mm_aggregate as mk
+        from repro_torch.kernels import launches as tally
         from repro_torch.launch import dryrun as D
         from repro_torch.optim import optimizers
         left = [p for p in D.pairs() if p not in DRYRUN_PAIRS]
@@ -3082,15 +3089,13 @@ class Smoke:
             stats0["allocated_bytes.all.current"]
         torch.cuda.reset_peak_memory_stats()
         base_peak = stats1["allocated_bytes.all.current"]
-        with mk.uncounted():
-            for counts in self._counts():
-                counts.update(dict.fromkeys(counts, 0))
-            self._counts()[2].clear()
+        with tally.uncounted():
+            tally.COUNTS.clear()
             t1 = time.perf_counter()
             card = D.trace(fn, args)
             torch.cuda.synchronize()
             card_s = time.perf_counter() - t1
-            launched = {k: n for k, n in mk.LAUNCHES_BY_SHAPE.items() if n}
+            launched = self._tally(tally.COUNTS)[2]
         peak = torch.cuda.max_memory_allocated()
         del fn, args
         torch.cuda.empty_cache()
@@ -3539,6 +3544,7 @@ def _fsdp_train_rank(mesh, ref_path, tokens):
     import torch.distributed as dist
     from repro_torch import configs, pytree
     from repro_torch.core import attacks, sharded
+    from repro_torch.kernels import launches as tally
     from repro_torch.kernels import mm_aggregate as mk
     from repro_torch.launch import steps
     from repro_torch.optim import optimizers
@@ -3562,7 +3568,7 @@ def _fsdp_train_rank(mesh, ref_path, tokens):
     rows, stash, state = [], {}, {}
 
     def one(step, opt, label):
-        before = [dict(c) for c in smoke._counts()]
+        before = tally.COUNTS.copy()
         sent0 = dict(sharded.TRAFFIC)
         dist.barrier()
         torch.cuda.synchronize()
@@ -3571,9 +3577,7 @@ def _fsdp_train_rank(mesh, ref_path, tokens):
         _, opt, m = step(local, opt, batch)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-        launches, variants, by_shape = (
-            {key: c[key] - b.get(key, 0) for key in c}
-            for c, b in zip(smoke._counts(), before))
+        launches, variants, by_shape = smoke._tally(tally.COUNTS - before)
         rows.append({"step": label, "rank": r, "host_ms": host_ms,
                      "device_ms": step.phase_ms(), "loss": float(m["loss"]),
                      "grad_norm": float(m["grad_norm"]),

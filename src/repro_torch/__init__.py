@@ -15,10 +15,8 @@ Names kept from the reference, and what they mean here:
     both packages, with different random streams.
 
   * ``ServeConfig.backend`` of the streaming service (``serve/``) takes
-    the same two names, and its ``interpret`` field (the reference's
-    Pallas interpret switch) has no effect; on the card the service
-    launches each cohort by replaying a CUDA graph captured once per
-    cohort geometry.
+    the same two names; on the card the service launches each cohort by
+    replaying a CUDA graph captured once per cohort geometry.
 
   * ``make_train_step_gspmd`` (``launch.steps``): the reference's Mode A
     train step, with ``device`` in place of its mesh; its K agents run
@@ -28,6 +26,6 @@ Names kept from the reference, and what they mean here:
 Entry points take ``device`` and default to ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.  Random draws go
 through explicit ``torch.Generator`` objects seeded from the spec.
-The ``sharded`` paradigm and the ssm, hybrid and audio model families
-are not ported yet and raise ``NotImplementedError``.
+Every paradigm of the reference, ``sharded`` included, and every model
+family (dense, moe, vlm, ssm, hybrid, audio) runs in the port.
 """

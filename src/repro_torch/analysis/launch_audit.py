@@ -36,8 +36,8 @@ the current device and checks what they launched and released:
                   capture once per distinct geometry, never once per
                   tenant.
 
-Every launch the audit makes runs inside ``mm_aggregate.uncounted()``,
-so the launch counts are left as they were.
+Every launch the audit makes runs inside ``launches.uncounted()``, so
+the launch counts are left as they were.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.findings import Finding
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as mk
 
 # the kernels' names as torch.profiler reports them
@@ -92,7 +93,7 @@ def count_launches(fn: Callable, device: torch.device):
     """(MM kernel launches of one fn() call, the calls the wrappers
     recorded in it): counted by the profiler on the card, by the records
     elsewhere."""
-    with mk.uncounted():
+    with launches.uncounted():
         with mk.record_calls() as calls:
             fn()
         n = _profiled_launches(fn) if device.type == "cuda" else len(calls)
@@ -144,7 +145,7 @@ def _host_sync(fn: Callable, *, where: str, path: str) -> List[Finding]:
     prev = torch.cuda.get_sync_debug_mode()
     torch.cuda.synchronize()
     try:
-        with mk.uncounted():
+        with launches.uncounted():
             torch.cuda.set_sync_debug_mode("error")
             try:
                 fn()
@@ -206,7 +207,7 @@ def check_tree_stream(engine, device: Optional[torch.device] = None
     tree = {"w": torch.zeros((8, 32), dtype=torch.bfloat16, device=dev),
             "b": torch.zeros((8, 7, 3), dtype=torch.bfloat16, device=dev)}
     staged = ops.stage_leaves([tree["b"], tree["w"]])
-    with mk.uncounted(), mk.record_calls() as calls:
+    with launches.uncounted(), mk.record_calls() as calls:
         engine.aggregate_tree(tree)
     want = mk.dtype_name(staged.dtype)
     got = [c.operands[0].dtype for c in calls]
@@ -251,7 +252,7 @@ def check_donation(donating=None, plain=None,
                  ("program", lambda t: engine.lower_tree(t).compile()(t)))
         for name, call in calls:
             leaves = tree()
-            with mk.uncounted():
+            with launches.uncounted():
                 call(leaves)
             released = sorted(k for k, v in leaves.items()
                               if v.untyped_storage().nbytes() == 0)
@@ -291,7 +292,7 @@ def check_scenarios(specs=None, device: Optional[torch.device] = None
     out: List[Finding] = []
     for spec in (scenario_specs() if specs is None else specs):
         low, state, gen = runner._lowered_state(spec, dev)
-        with mk.uncounted(), ops.record_workloads() as records:
+        with launches.uncounted(), ops.record_workloads() as records:
             low.step_fn(state, gen, 0)
         layouts = [r for r in records if r["backend"] == "pallas"]
         if not layouts:
@@ -303,7 +304,7 @@ def check_scenarios(specs=None, device: Optional[torch.device] = None
         out.extend(audit_launches(
             lambda: low.step_fn(state, gen, 1), path="scenario",
             where=spec.label(), expect=max(len(layouts), 1), device=dev))
-        with mk.uncounted():
+        with launches.uncounted():
             program, _ = runner.trace_spec(spec, device=dev)
         want = spec.num_steps * max(len(layouts), 1)
         n, _ = count_launches(lambda: program.replay(seed=spec.seed), dev)
@@ -346,7 +347,7 @@ def check_serve(session=None) -> List[Finding]:
     broken ones)."""
     out: List[Finding] = []
     if session is None:
-        with mk.uncounted():
+        with launches.uncounted():
             session = _serve_session()
     c = session.telemetry.counters
     commits = int(c["commits"])
@@ -398,7 +399,7 @@ def check_serve_multitenant(front=None) -> List[Finding]:
     default session; the mutation tests inject broken ones)."""
     out: List[Finding] = []
     if front is None:
-        with mk.uncounted():
+        with launches.uncounted():
             front = _multitenant_front()
     services = list(front.tenants.values())
     n_tenants = len(services)

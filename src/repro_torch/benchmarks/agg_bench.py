@@ -6,7 +6,7 @@ structural audits:
 
   * launch audit: the whole gradient pytree is aggregated by ONE kernel
     launch, not one per leaf (the wrappers' ``record_calls``; on the
-    card also ``LAUNCHES``);
+    card also ``launches.COUNTS``);
   * traffic audit: at fixed tile sizes the batched launch reads the
     SAME number of input tiles (and bytes) from HBM for every N -- the
     one-residency contract, audited for BOTH kernels from their launch
@@ -41,6 +41,7 @@ import torch
 from repro_torch import devices, pytree, scenarios
 from repro_torch.benchmarks.kernel_bench import time_us
 from repro_torch.core import aggregators
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as mk
 from repro_torch.kernels import ops, ref, tuning
 from repro_torch.scenarios import runner
@@ -83,11 +84,11 @@ def count_launches(fn, *args) -> int:
     """MM kernel launches one call of fn makes: the calls the wrappers
     record (``mm_aggregate.record_calls``, on any device, as
     ``analysis.launch_audit`` counts them); on the card each must also
-    be a counted launch (``LAUNCHES``)."""
-    before = sum(mk.LAUNCHES.values())
+    be a counted launch (``launches.COUNTS``)."""
+    before = launches.total(*mk.MM_KERNELS)
     with mk.record_calls() as calls:
         fn(*args)
-    launched = sum(mk.LAUNCHES.values()) - before
+    launched = launches.total(*mk.MM_KERNELS) - before
     if launched not in (0, len(calls)):          # the CPU launches nothing
         raise AssertionError(f"{len(calls)} wrapper calls but {launched} "
                              "launches counted")
@@ -244,13 +245,13 @@ def main(smoke: bool = False, device="cuda"):
             an = torch.rand((k, n), generator=torch.Generator(device=dev)
                             .manual_seed(1), device=dev) * 0.9 + 0.1
             pn = mk.launch_plan(k, m, n)
-            launches = count_launches(ops.mm_aggregate_batched, x, an)
-            assert launches == 1, launches
+            n_launches = count_launches(ops.mm_aggregate_batched, x, an)
+            assert n_launches == 1, n_launches
             us, _ = time_us(lambda: ops.mm_aggregate_batched(x, an), dev, reps)
             rows.append((f"agg/mm_pallas_batched/K{k}_M{m}_N{n}", us,
                          n * m / us,
                          pn.input_bytes + pn.weight_bytes + pn.output_bytes,
-                         launches))
+                         n_launches))
         audits.append(traffic_audit(k, m))
 
     # large-cohort rows: the two-pass kernel on meshes whose single-pass
@@ -306,14 +307,15 @@ def main(smoke: bool = False, device="cuda"):
         leaves = pytree.flatten(tree)[0]
         m_total = sum(leaf.numel() // k for leaf in leaves)
         eng = ops.AggregationEngine()
-        launches = count_launches(eng.aggregate_tree, tree, a)
-        assert launches == 1, f"expected ONE kernel launch, got {launches}"
+        n_launches = count_launches(eng.aggregate_tree, tree, a)
+        assert n_launches == 1, \
+            f"expected ONE kernel launch, got {n_launches}"
         pt = mk.launch_plan(k, m_total, 1)
         us, _ = time_us(lambda: eng.aggregate_tree(tree, a), dev, reps)
         rows.append((f"agg/engine_tree_weighted/K{k}_leaves{len(leaves)}"
-                     f"_M{m_total}_launches{launches}", us, m_total / us,
+                     f"_M{m_total}_launches{n_launches}", us, m_total / us,
                      pt.input_bytes + pt.weight_bytes + pt.output_bytes,
-                     launches))
+                     n_launches))
     return rows, audits, irls_rows, substrate
 
 

@@ -16,10 +16,9 @@ thread's registers; ``warp``: one warp per (column, n) pair, K <= 64;
 two-pass K-major kernel for large cohorts, in which one warp owns one
 column, sorts its bk-row blocks and combines their statistics.  Each
 sits behind a wrapper here (``single_pass``, ``two_pass``) that launches
-it for a CUDA tensor, one kernel per call, and counts the launch in
-``LAUNCHES`` (the single-pass variant in ``LAUNCHES_BY_VARIANT``, the
-kernel and its (K, M, N) in ``LAUNCHES_BY_SHAPE``);
-for a CPU tensor the wrapper runs the plain PyTorch version beside it
+it for a CUDA tensor, one kernel per call, and counts the launch under
+its ``KernelCall.key`` in ``launches.COUNTS``; for a CPU tensor the
+wrapper runs the plain PyTorch version beside it
 (``mm_single_pass_plain``, ``mm_two_pass_plain``), which repeats the TPU
 kernel's arithmetic on the padded operands: the sorted-order f32
 cumulative weights, the crossing with no epsilon, the rank midpoints,
@@ -60,7 +59,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import location, mestimators
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 SMEM_BUDGET_BYTES = 232_448      # shared memory one Hopper block may use
 _MIN_BLOCK_M = 32                # one warp of columns: coalesced row reads
@@ -92,6 +91,8 @@ _TWO_PASS_WEIGHT_SLICE_BYTES = 64 * 1024
 
 # single-pass variants (csrc/mm_single_pass.cu), by their C codes
 SINGLE_PASS_VARIANTS = {"regs": 0, "warp": 1, "smem": 2}
+# the MM kernels' names in launches.COUNTS
+MM_KERNELS = (*SINGLE_PASS_VARIANTS, "two_pass")
 # most rows a variant holds: regs' largest template bound; warp's two
 # rows per lane
 VARIANT_MAX_K = {"regs": 32, "warp": 64}
@@ -104,15 +105,8 @@ REGS_MIN_COLUMNS = 66 * 256
 # warps on each of the 132 SMs; past that the card is full either way
 WARP_MAX_PAIRS = 132 * 32
 
-# kernel launches made by the wrappers below, for CUDA tensors only
-LAUNCHES = {"single_pass": 0, "two_pass": 0}
-LAUNCHES_BY_VARIANT = {v: 0 for v in SINGLE_PASS_VARIANTS}
-# the same launches by (variant or "two_pass", K, M, N); emptied, not zeroed
-LAUNCHES_BY_SHAPE: dict = {}
 # the lists of the open record_calls() scopes
 _CALL_RECORDERS: list = []
-# the lists of the open record_captured() scopes
-_CAPTURE_RECORDERS: list = []
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -413,7 +407,8 @@ class KernelCall(NamedTuple):
 
     @property
     def key(self) -> tuple:
-        """(variant or "two_pass", K, M, N): the launch counts' key."""
+        """(variant or "two_pass", K, M, N): the launch's key in
+        ``launches.COUNTS``."""
         return (self.plan.variant or "two_pass", self.k, self.m,
                 self.plan.n_out)
 
@@ -538,8 +533,8 @@ def launch_query(call: KernelCall) -> dict:
 def record_calls():
     """Collect the ``KernelCall`` of every wrapper call made inside the
     scope, one per call, on every device (the CPU's plain versions, the
-    card, CUDA-graph capture and the meta device).  ``LAUNCHES`` counts
-    CUDA launches outside capture only."""
+    card, CUDA-graph capture and the meta device).  ``launches.COUNTS``
+    counts launches on the card only."""
     records: list = []
     _CALL_RECORDERS.append(records)
     try:
@@ -727,68 +722,6 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
                          f"{plan.n_out}) tensor on {x.device}")
 
 
-def count_launch(plan: LaunchPlan, k: int, m: int, n: int = 1) -> None:
-    """Add ``n`` launches of the plan's kernel over a (k, m) x to the
-    counts."""
-    if plan.path == "two_pass":
-        LAUNCHES["two_pass"] += n
-    else:
-        LAUNCHES["single_pass"] += n
-        LAUNCHES_BY_VARIANT[plan.variant] += n
-    key = (plan.variant or "two_pass", k, m, plan.n_out)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
-
-
-def count_replay(launches) -> None:
-    """Add one graph replay's launches, ((plan, k, m), count) pairs from
-    its capture (``record_captured``), to the counts."""
-    for (plan, k, m), n in launches:
-        count_launch(plan, k, m, n)
-
-
-@contextlib.contextmanager
-def uncounted():
-    """Launches made inside the scope (a timing sweep, a comparison)
-    leave every launch count as it was."""
-    counts = (LAUNCHES, LAUNCHES_BY_VARIANT, LAUNCHES_BY_SHAPE)
-    saved = [dict(c) for c in counts]
-    try:
-        yield
-    finally:
-        for c, old in zip(counts, saved):
-            c.clear()
-            c.update(old)
-
-
-@contextlib.contextmanager
-def record_captured():
-    """Collect the (plan, K, M) of every kernel launch a wrapper makes
-    inside the scope while a CUDA graph captures the stream: the
-    launches each replay of that graph makes.  The wrappers do not count
-    them; the program that replays the graph adds them to the counts
-    (``count_launch``) once per replay."""
-    records: list = []
-    _CAPTURE_RECORDERS.append(records)
-    try:
-        yield records
-    finally:
-        for i, r in enumerate(_CAPTURE_RECORDERS):
-            if r is records:
-                del _CAPTURE_RECORDERS[i]
-                break
-
-
-def _count_launch(plan: LaunchPlan, k: int, m: int) -> None:
-    # a launch made while a CUDA graph captures the stream runs only when
-    # the graph replays; the program that replays it counts it there
-    # (ops.LaunchProgram, ops.TreeProgram, runner.ScenarioProgram)
-    if torch.cuda.is_current_stream_capturing():
-        for records in _CAPTURE_RECORDERS:
-            records.append((plan, k, m))
-    else:
-        count_launch(plan, k, m)
-
-
 def _launch_args(x, a, out, plan):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return (x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.shape[0],
@@ -834,7 +767,7 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     if err:
         raise RuntimeError(f"mm_single_pass ({plan.variant}) launch failed: "
                            f"cudaError {err}")
-    _count_launch(plan, k, m)
+    launches.note(call.key)
     return out
 
 
@@ -859,7 +792,7 @@ def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
         *args, *call.args, num_iters, c, int(weighted), stream)
     if err:
         raise RuntimeError(f"mm_two_pass launch failed: cudaError {err}")
-    _count_launch(plan, k, m)
+    launches.note(call.key)
     return out
 
 

@@ -50,9 +50,9 @@ Both warm up once on a side stream before the capture (it loads the
 kernel library, opts the kernel in to its shared memory and asks its
 occupancy, none of which may happen during a capture); ``capture_graph``
 and ``warm_up`` are shared with the scenario runner, which captures
-whole trajectories.  The wrappers do not count a launch made while a
-graph captures; a program adds its graph's launches to their counts on
-every replay.
+whole trajectories.  ``capture_graph`` returns the keys of the launches
+it captured, which ``launches.COUNTS`` does not count; a program counts
+them on every replay (``launches.replay``).
 
 Inside a ``record_workloads()`` scope every launch appends its resolved
 workload (K, M, N, dtype, backend, block sizes, path) once; the scenario
@@ -63,7 +63,8 @@ runner builds its launch audit from those records.
 of a CUDA tensor by the kernel of ``csrc/finite.cu``, one 4-byte flag.
 ``residual_norms(rows, center)`` gives the service's norms after a
 commit, ``||row - center||`` for each row, from one read of each row by
-the kernel of ``csrc/residual.cu``.
+the kernel of ``csrc/residual.cu``.  Both count their launches on the
+card in ``launches.COUNTS``, as the MM wrappers do.
 
 ``autotune=True`` runs ``tuning.autotune``'s sweep the first time the
 engine meets a (K, M, N, dtype) on a device (never while a CUDA graph
@@ -82,7 +83,7 @@ import torch
 
 from repro_torch import devices, pytree
 from repro_torch.core import location, mestimators
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 from repro_torch.kernels import mm_aggregate as _k
 from repro_torch.kernels import tuning
 
@@ -342,8 +343,7 @@ class AggregationEngine:
     # -- standalone launches (cohort assembly decoupled) -------------------
 
     def lower_launch(self, k: int, m: int, dtype=torch.float32, *,
-                     weighted: bool = True, donate: bool = False,
-                     device="cuda") -> "LoweredLaunch":
+                     weighted: bool = True, device="cuda") -> "LoweredLaunch":
         """The one-cohort launch for a fixed geometry, not yet compiled:
         ``(x (k, m) dtype, a (k,) f32) -> (m,) dtype``.
 
@@ -351,12 +351,9 @@ class AggregationEngine:
         and launches the compiled program for every admitted cohort.  The
         workload resolution (tuning-cache winner or heuristic, the
         single<->two-pass path) is ``aggregate``'s, and the compile
-        records it for launch audits.  ``donate`` is the reference's flag
-        for handing the cohort buffer to the launch; here the cohort
-        buffer is always the program's own static input, which the
-        caller re-stages on every attempt, so the flag changes nothing
-        and is kept so that one call means the same in both packages."""
-        del donate
+        records it for launch audits.  The cohort buffer is always the
+        program's own static input, which the caller re-stages on every
+        attempt."""
         dev = devices.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -372,11 +369,9 @@ class LaunchProgram:
     the (m,) estimate.  On a CUDA device the launch is a captured CUDA
     graph and the estimate is the graph's own output tensor, overwritten
     by the next replay of this program: a caller that keeps it clones it
-    first.  The wrappers do not count the launch they make while the
-    graph is captured; each replay adds its kernel launch to their
-    counts (``mm_aggregate.LAUNCHES`` and the rest).  On the CPU the
-    program calls the engine's launch (the kernels' plain versions) on
-    the static inputs.
+    first.  Each replay counts the graph's captured launches
+    (``launches.replay``).  On the CPU the program calls the engine's
+    launch (the kernels' plain versions) on the static inputs.
     """
 
     def __init__(self, launch, x: torch.Tensor, a: torch.Tensor, plan):
@@ -386,7 +381,7 @@ class LaunchProgram:
         self.plan = plan
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
-        self.launches: tuple = ()      # ((plan, k, m), launches a replay)
+        self.launches = collections.Counter()  # launch keys a replay
         self.replays = 0
 
     def stage(self, rows, a: Optional[torch.Tensor] = None) -> None:
@@ -408,7 +403,7 @@ class LaunchProgram:
         else:
             self.graph.replay()
             out = self.out
-            _k.count_replay(self.launches)
+            launches.replay(self.launches)
         self.replays += 1
         return out
 
@@ -475,8 +470,8 @@ class TreeProgram:
     program is a captured CUDA graph and the returned tree holds the
     graph's own output tensors, overwritten by the next replay of this
     program: a caller that keeps them clones them first.  Each replay
-    adds the graph's kernel launch to the wrappers' counts
-    (``mm_aggregate.LAUNCHES`` and the rest).  On the CPU the program
+    counts the graph's captured launches (``launches.replay``).  On the
+    CPU the program
     runs the engine's launch and split (the kernels' plain versions) on
     the static inputs.
     """
@@ -490,7 +485,7 @@ class TreeProgram:
         self._run = run
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[list] = None
-        self.launches: tuple = ()      # ((plan, k, m), launches a replay)
+        self.launches = collections.Counter()  # launch keys a replay
         self.replays = 0
 
     def stage(self, tree, a: Optional[torch.Tensor] = None) -> None:
@@ -519,7 +514,7 @@ class TreeProgram:
         else:
             self.graph.replay()
             outs = self.outputs
-            _k.count_replay(self.launches)
+            launches.replay(self.launches)
         self.replays += 1
         return outs
 
@@ -579,18 +574,18 @@ def warm_up(fn: Callable[[], object], device: torch.device) -> None:
 
 def capture_graph(fn: Callable[[], object],
                   generators: Sequence[torch.Generator] = ()):
-    """Capture fn into a new CUDA graph: (graph, fn's output, the kernel
-    launches it captured as ((plan, k, m), count) pairs).  Each
+    """Capture fn into a new CUDA graph: (graph, fn's output, the keys
+    of the kernel launches it captured, a Counter).  Each
     generator in ``generators`` is registered with the graph, so every
     replay draws from its state at the replay, as the eager code would.
     A failed capture raises."""
     graph = torch.cuda.CUDAGraph()
     for generator in generators:
         graph.register_generator_state(generator)
-    with _k.record_captured() as launches:
+    with launches.captured() as keys:
         with torch.cuda.graph(graph):
             out = fn()
-    return graph, out, tuple(collections.Counter(launches).items())
+    return graph, out, collections.Counter(keys)
 
 
 def stage_leaves(leaves, out: Optional[torch.Tensor] = None, *,
@@ -668,8 +663,6 @@ def mm_aggregate_tree(tree, a: Optional[torch.Tensor] = None, *,
 # finiteness
 # ---------------------------------------------------------------------------
 
-# finiteness checks launched on the card by any_nonfinite
-FINITE_LAUNCHES = 0
 # the kernel's dtypes: their C codes, the integer type of their bits and
 # the exponent field (all ones: NaN, +inf or -inf)
 _FINITE_BITS = {torch.float32: (0, torch.int32, 0x7F800000),
@@ -720,7 +713,6 @@ def any_nonfinite(x: torch.Tensor) -> torch.Tensor:
     (``csrc/finite.cu``), one launch that raises a 4-byte flag and writes
     nothing else; it has to be a contiguous f32 or bf16 tensor, and any
     other CUDA tensor raises.  A CPU tensor takes ``torch.isfinite``."""
-    global FINITE_LAUNCHES
     if x.device.type != "cuda":
         return torch.isfinite(x).all().logical_not().to(torch.int32)
     if x.dtype not in _FINITE_BITS or not x.is_contiguous():
@@ -741,17 +733,13 @@ def any_nonfinite(x: torch.Tensor) -> torch.Tensor:
             x.device.index)
         if err:
             raise RuntimeError(f"finite_check launch failed: cudaError {err}")
-        FINITE_LAUNCHES += 1
+        launches.note(("finite_scan", 1, n, 1))
     return flag
 
 
 # ---------------------------------------------------------------------------
 # residual norms
 # ---------------------------------------------------------------------------
-
-# residual-norm calls launched on the card by residual_norms
-RESIDUAL_LAUNCHES = 0
-
 
 def residual_norms_plain(rows: Sequence[torch.Tensor],
                          center: torch.Tensor) -> torch.Tensor:
@@ -775,7 +763,6 @@ def residual_norms(rows: Sequence[torch.Tensor],
     taken in f32 and its squares summed in f64, in an order fixed by the
     card, n and M, so a repeat gives the same bits.  On the CPU it is
     ``residual_norms_plain``."""
-    global RESIDUAL_LAUNCHES
     if not rows:
         raise ValueError("residual_norms needs at least one row")
     m, dev = center.numel(), center.device
@@ -808,5 +795,5 @@ def residual_norms(rows: Sequence[torch.Tensor],
         torch._C._cuda_getCurrentRawStream(dev.index), dev.index)
     if err:
         raise RuntimeError(f"residual_norms launch failed: cudaError {err}")
-    RESIDUAL_LAUNCHES += 1
+    launches.note(("residual", n, m, 1))
     return out

@@ -36,6 +36,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import devices
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as _mm
 
 WARP = 32
@@ -347,7 +348,7 @@ def autotune(k: int, m: int, n: int = 1, dtype=torch.float32, *,
     x = torch.randn((int(k), int(m)), generator=g, device=dev).to(dtype)
     a = torch.rand((int(k), int(n)), generator=g, device=dev) * 0.9 + 0.1
     timed = []
-    with _mm.uncounted():
+    with launches.uncounted():
         for c in choices:
             def call(c=c):
                 return _mm.mm_aggregate_batched_2d(

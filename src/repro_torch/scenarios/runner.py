@@ -74,7 +74,7 @@ import torch.distributed as dist
 from repro_torch import devices, pytree
 from repro_torch.core import diffusion, federated, sharded
 from repro_torch.data import synthetic
-from repro_torch.kernels import mm_aggregate, ops, tuning
+from repro_torch.kernels import launches, mm_aggregate, ops, tuning
 from repro_torch.scenarios import metrics, registry
 from repro_torch.scenarios.spec import ScenarioResult, ScenarioSpec
 
@@ -222,9 +222,9 @@ class ScenarioProgram:
     ``records`` the engine workloads the compile resolved.  With
     ``graph`` set (a CUDA device, a capturable paradigm) ``state`` is
     the graph's static input and ``final_state`` / ``history`` its
-    static outputs, overwritten by the next replay; ``launches`` are the
-    kernel launches the capture made, ((plan, k, m), count) pairs, added
-    to the wrappers' counts on every replay.  Without a graph a replay
+    static outputs, overwritten by the next replay; ``launches`` holds the
+    keys of the kernel launches the capture made, counted on every
+    replay (``launches.replay``).  Without a graph a replay
     runs the eager ``loop`` on a fresh copy of the state.  ``timings``
     splits the compile's seconds: ``warm_up_s`` (the warm-up step and a
     synchronize), and for a captured program ``capture_s`` (the Python
@@ -243,7 +243,7 @@ class ScenarioProgram:
         self.state = None
         self.final_state = None
         self.history: Optional[dict] = None
-        self.launches: tuple = ()
+        self.launches = collections.Counter()  # launch keys a replay
         self.timings: dict = {}
 
     @property
@@ -266,7 +266,7 @@ class ScenarioProgram:
         for dst, value in zip(pytree.flatten(self.state)[0], src):
             dst.copy_(value)
         self.graph.replay()
-        mm_aggregate.count_replay(self.launches)
+        launches.replay(self.launches)
         return self.final_state, self.history
 
     def release(self) -> None:

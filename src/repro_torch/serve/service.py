@@ -71,12 +71,10 @@ DEGRADATIONS = ("partial", "carry")
 class ServeConfig:
     """Admission + degradation policy of one service instance.
 
-    The reference's fields and checks, so one config means the same in
-    both packages.  ``backend``: ``"pallas"`` launches the Hopper kernels
-    (their plain versions on the CPU), ``"jnp"`` the plain estimator of
-    ``core.location``.  ``interpret`` (the reference's Pallas interpret
-    switch) and ``donate`` (see ``AggregationEngine.lower_launch``)
-    change nothing here."""
+    The reference's fields and checks, but for its ``interpret`` and
+    ``donate``, which would change nothing here.  ``backend``:
+    ``"pallas"`` launches the Hopper kernels (their plain versions on the
+    CPU), ``"jnp"`` the plain estimator of ``core.location``."""
 
     k_min: int = 8                    # cohort admission threshold
     deadline_s: float = 1.0           # admit-by deadline per cohort
@@ -87,10 +85,8 @@ class ServeConfig:
     degraded_c_scale: float = 0.5     # widened margin: Tukey c scale
     trust_factor: float = 2.0         # partial step clip vs. EMA step norm
     max_buffer: int = 4096            # backpressure cap
-    donate: bool = True               # the reference's cohort donation
     num_iters: int = 10               # IRLS depth
     backend: str = "pallas"           # engine backend (pallas | jnp)
-    interpret: Optional[bool] = None  # the reference's interpret override
     retry: _retry.RetryPolicy = _retry.RetryPolicy()
     # -- health-gated admission -------------------------------------------
     health_gate: bool = True
@@ -189,8 +185,8 @@ class ExecutableCache:
     ``(k, m, dtype, device)`` and shared by every program of that
     geometry -- the full-cohort and the degraded engine's programs read
     the same (k, M) buffer, which at a model's full width is most of the
-    card.  ``replays`` counts the launch programs run through the cache
-    by every tenant.
+    card.  Each program counts its own replays; the service replays
+    them only through the cache.
     """
 
     def __init__(self):
@@ -198,7 +194,6 @@ class ExecutableCache:
         self._key_records: Dict[tuple, list] = {}
         self._inputs: Dict[tuple, tuple] = {}
         self.hits = 0
-        self.replays = 0
         self.compiles = collections.Counter()
 
     def get(self, key):
@@ -240,7 +235,8 @@ class ExecutableCache:
             "exec_cache_keys": self.n_keys,
             "exec_cache_compiles": self.n_compiles,
             "exec_cache_hits": int(self.hits),
-            "exec_cache_replays": int(self.replays),
+            "exec_cache_replays": sum(program.replays
+                                      for program in self._execs.values()),
             "exec_cache_max_compiles_per_key":
                 max(self.compiles.values()) if self.compiles else 0,
         }
@@ -278,16 +274,6 @@ def cohort_weights(entries: List[Pending], config: ServeConfig,
          for p in entries], dtype=np.float32)
 
 
-def _launch_record(program) -> dict:
-    """The launch a program replays: its kernel path and variant (None
-    on the ``jnp`` backend) and its (K, M, N)."""
-    plan = program.plan
-    k, m = program.x.shape
-    return {"path": plan.path if plan is not None else None,
-            "variant": (plan.variant or plan.path) if plan is not None
-            else None, "k": int(k), "m": int(m), "n": 1}
-
-
 def assemble_cohort(entries: List[Pending], config: ServeConfig,
                     health_factors: Optional[Dict[int, float]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -312,10 +298,7 @@ class AggregationService:
     ``AggregationService.recover(journal, ...)``.  ``device`` holds the
     model, the payloads and the launches (``"cuda"`` by default; raises
     without a card unless the caller asks for ``"cpu"``).  ``timer``
-    times the service's phases (``phase_ms``); one with ``spans=True``
-    also keeps its host spans: ``submit`` > ``admit`` for each update,
-    ``commit`` > ``stage``, ``replay`` (with the program's launch record),
-    ``take``, ``guard``, ``outliers``, ``clip``, each with its round.
+    times the service's phases on the card (``phase_ms``).
     """
 
     def __init__(self, model0, *, config: ServeConfig = ServeConfig(),
@@ -497,13 +480,6 @@ class AggregationService:
         device here."""
         if self._admit_mark is None:
             self._admit_mark = self.timer.mark()
-        token = self.timer.begin("submit", device=False, round=self.round)
-        try:
-            return self._submit(update)
-        finally:
-            self.timer.end(token)
-
-    def _submit(self, update: AgentUpdate) -> str:
         update = dataclasses.replace(
             update, payload=_as_vector(update.payload, self.device))
         was_empty = len(self.buffer) == 0
@@ -668,13 +644,6 @@ class AggregationService:
             self._admit(deadline=False)
 
     def _admit(self, *, deadline: bool) -> CommitResult:
-        token = self.timer.begin("commit", device=False, round=self.round)
-        try:
-            return self._admit_cohort(deadline)
-        finally:
-            self.timer.end(token)
-
-    def _admit_cohort(self, deadline: bool) -> CommitResult:
         cfg = self.config
         k = min(len(self.buffer), cfg.k_min)
         if deadline and k < cfg.k_min:
@@ -824,7 +793,7 @@ class AggregationService:
 
     def _engine_sig(self, degraded: bool) -> tuple:
         cfg = self.config
-        return (cfg.backend, cfg.num_iters, cfg.interpret, bool(degraded),
+        return (cfg.backend, cfg.num_iters, bool(degraded),
                 cfg.degraded_c_scale if degraded else None)
 
     def _compiled(self, k_geom: int, degraded: bool):
@@ -844,7 +813,7 @@ class AggregationService:
         with ops.record_workloads() as records:
             lowered = self._engines[bool(degraded)].lower_launch(
                 k_geom, self.dim, torch.float32, weighted=True,
-                donate=self.config.donate, device=self.device)
+                device=self.device)
             program = lowered.compile(self.exec_cache.static_inputs(lowered))
         compile_s = time.perf_counter() - t0
         for r in records:
@@ -862,7 +831,6 @@ class AggregationService:
                 degraded: bool):
         program, cache_hit, compile_s = self._compiled(len(rows), degraded)
         weights = torch.from_numpy(a)
-        launch = _launch_record(program) if self.timer.spans_on else None
 
         def attempt():
             if self._fault_hook is not None:
@@ -873,13 +841,12 @@ class AggregationService:
             token = self.timer.begin("stage")
             program.stage(rows, weights)
             self.timer.end(token)
-            token = self.timer.begin("replay", attrs=launch)
+            token = self.timer.begin("replay")
             t0 = time.perf_counter()
             out = program.replay()
             self.timer.end(token)
             self._sync()
             wall = time.perf_counter() - t0
-            self.exec_cache.replays += 1
             self.telemetry.record_replay()
             # the graph's output is overwritten by its next replay, by
             # any tenant sharing the cache: take it out first

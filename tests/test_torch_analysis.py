@@ -17,6 +17,7 @@ import torch
 from repro_torch.analysis import contracts, launch_audit
 from repro_torch.analysis import findings as F
 from repro_torch.analysis.__main__ import main as analysis_main
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as mk
 from repro_torch.kernels import ops
 
@@ -376,9 +377,8 @@ def test_record_calls_sees_every_device_and_nests():
     assert [c.key for c in outer] == [("warp", 8, 300, 1),
                                       ("warp", 8, 300, 1),
                                       ("two_pass", 128, 64, 3)]
-    # LAUNCHES counts CUDA launches only
-    assert mk.LAUNCHES == {"single_pass": 0, "two_pass": 0} or \
-        torch.cuda.is_available()
+    # the tally counts launches on the card only
+    assert launches.total() == 0 or torch.cuda.is_available()
 
 
 def test_meta_wrappers_return_the_estimate_shape():
@@ -567,11 +567,9 @@ def test_mutation_trajectory_launch_count(monkeypatch):
 
 
 def test_audit_leaves_the_launch_counts_alone():
-    before = (dict(mk.LAUNCHES), dict(mk.LAUNCHES_BY_VARIANT),
-              dict(mk.LAUNCHES_BY_SHAPE))
+    before = launches.COUNTS.copy()
     launch_audit.check_engine()
-    assert (mk.LAUNCHES, mk.LAUNCHES_BY_VARIANT, mk.LAUNCHES_BY_SHAPE) == \
-        before
+    assert launches.COUNTS == before
 
 
 # ===========================================================================

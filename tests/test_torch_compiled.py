@@ -12,6 +12,8 @@ the card by ``chip_smoke.py`` (phases width, paper and cohort); here a
 stub graph checks the launch bookkeeping of a replay.
 """
 
+import collections
+import copy
 import types
 
 import jax
@@ -26,6 +28,7 @@ from repro.scenarios import runner as jrunner
 from repro_torch import scenarios
 from repro_torch.core import federated as tfed
 from repro_torch.data import synthetic as tsyn
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as mk
 from repro_torch.kernels import ops
 from repro_torch.scenarios import runner
@@ -197,35 +200,45 @@ def test_tree_program_refuses_another_layout():
         program(_tree(), torch.ones(K))
 
 
-def test_program_replays_count_their_captured_launches():
-    """A captured program adds its graph's launches to the wrappers'
-    counts on every replay (a stub graph stands in for the card's)."""
-    plan = mk.launch_plan(K, 85, 1)
+def _stub_tree_program():
     program = ops.AggregationEngine().lower_tree(_tree()).compile()
-    program.graph = types.SimpleNamespace(replay=lambda: None)
     program.outputs = [torch.zeros(5), torch.zeros(()), torch.zeros(16, 4)]
-    program.launches = (((plan, K, 85), 1),)
-    with mk.uncounted():
-        before = dict(mk.LAUNCHES)
-        program(_tree())
-        program(_tree())
-        assert mk.LAUNCHES["single_pass"] == before["single_pass"] + 2
-        assert mk.LAUNCHES_BY_SHAPE[(plan.variant, K, 85, 1)] >= 2
+    return program, lambda: program(_tree()), (K, 85, 1), 1
 
 
-def test_launch_program_replays_count_their_captured_launches():
-    plan = mk.launch_plan(K, 10, 1)
+def _stub_launch_program():
     program = ops.AggregationEngine().lower_launch(K, 10,
                                                    device="cpu").compile()
-    program.graph = types.SimpleNamespace(replay=lambda: None)
     program.out = torch.zeros(10)
-    program.launches = (((plan, K, 10), 1),)
-    with mk.uncounted():
-        before = dict(mk.LAUNCHES)
-        program.replay()
-        program.replay()
-        assert mk.LAUNCHES["single_pass"] == before["single_pass"] + 2
-        assert mk.LAUNCHES_BY_SHAPE[(plan.variant, K, 10, 1)] >= 2
+    return program, program.replay, (K, 10, 1), 1
+
+
+def _stub_scenario_program():
+    spec = scenarios.ScenarioSpec(**SPECS["diffusion"],
+                                  aggregator="mm_tukey", backend="pallas")
+    program, records = runner.trace_spec(spec, device="cpu")
+    program.state = copy.deepcopy(program.state0)
+    (shape,) = {(r["k"], r["m"], r["n"]) for r in records}
+    return program, lambda: program.replay(seed=spec.seed), shape, \
+        spec.num_steps
+
+
+@pytest.mark.parametrize("make", [_stub_tree_program, _stub_launch_program,
+                                  _stub_scenario_program],
+                         ids=["tree", "launch", "scenario"])
+def test_program_replays_count_their_captured_launches(make):
+    """A captured program counts its graph's launch keys in the tally on
+    every replay (a stub graph stands in for the card's)."""
+    program, replay, (k, m, n), per_replay = make()
+    key = (mk.launch_plan(k, m, n).variant or "two_pass", k, m, n)
+    program.graph = types.SimpleNamespace(replay=lambda: None)
+    program.launches = collections.Counter({key: per_replay})
+    with launches.uncounted():
+        before = launches.COUNTS.copy()
+        replay()
+        replay()
+        assert launches.COUNTS - before == \
+            collections.Counter({key: 2 * per_replay})
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels import ops
 from repro_torch.serve import buffer as sbuf
 from repro_torch.serve import service as ssvc
@@ -162,9 +163,9 @@ def test_cpu_tensors_take_isfinite(dtype):
 
 
 def test_cpu_checks_launch_nothing():
-    before = ops.FINITE_LAUNCHES
+    before = launches.total("finite_scan")
     ops.any_nonfinite(torch.full((100,), float("nan")))
-    assert ops.FINITE_LAUNCHES == before
+    assert launches.total("finite_scan") == before
 
 
 # ===========================================================================
@@ -180,10 +181,11 @@ def card():
 
 
 def _kernel_check(x, label):
-    before = ops.FINITE_LAUNCHES
+    key = ("finite_scan", 1, x.numel(), 1)
+    before = launches.COUNTS[key]
     got = ops.any_nonfinite(x)
     assert got.shape == () and got.dtype == torch.int32, label
-    assert ops.FINITE_LAUNCHES == before + (x.numel() > 0), label
+    assert launches.COUNTS[key] == before + (x.numel() > 0), label
     assert bool(got) == _expected(x), label
     return bool(got)
 

@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import mm_aggregate as JK
 from repro_torch.core import mestimators
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as TK
 
 PAPER, FEDERATED = (32, 10, 32), (16, 10, 1)
@@ -88,14 +89,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(8, 50)).astype(np.float32))
     a = torch.full((8, 1), 1 / 8)
-    before = (dict(TK.LAUNCHES), dict(TK.LAUNCHES_BY_VARIANT))
-    assert set(TK.LAUNCHES_BY_VARIANT) == set(TK.SINGLE_PASS_VARIANTS)
+    before = launches.COUNTS.copy()
+    assert TK.MM_KERNELS == (*TK.SINGLE_PASS_VARIANTS, "two_pass")
     want = TK.single_pass(x, a, TK.launch_plan(8, 50, 1), weighted=False)
     for variant in TK.SINGLE_PASS_VARIANTS:
         plan = TK.launch_plan(8, 50, 1, variant=variant)
         got = TK.single_pass(x, a, plan, weighted=False)
         assert torch.equal(got, want)
-    assert (dict(TK.LAUNCHES), dict(TK.LAUNCHES_BY_VARIANT)) == before
+    assert launches.COUNTS == before
 
 
 # ---------------------------------------------------------------------------

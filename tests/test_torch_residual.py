@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels import ops
 from repro_torch.serve import buffer as sbuf
 from repro_torch.serve import service as ssvc
@@ -85,16 +86,16 @@ def _refusal(case):
     ("device", "is on meta")])
 def test_wrapper_refuses_what_the_kernel_cannot_read(case, match):
     rows, center = _refusal(case)
-    before = ops.RESIDUAL_LAUNCHES
+    before = launches.total("residual")
     with pytest.raises(ValueError, match=match):
         ops.residual_norms(rows, center)
-    assert ops.RESIDUAL_LAUNCHES == before
+    assert launches.total("residual") == before
 
 
 def test_cpu_norms_launch_nothing():
-    before = ops.RESIDUAL_LAUNCHES
+    before = launches.total("residual")
     ops.residual_norms(*_rows(4, 10))
-    assert ops.RESIDUAL_LAUNCHES == before
+    assert launches.total("residual") == before
 
 
 # ===========================================================================
@@ -179,9 +180,10 @@ def card():
 
 
 def _kernel_check(rows, center, label):
-    before = ops.RESIDUAL_LAUNCHES
+    key = ("residual", len(rows), center.numel(), 1)
+    before = launches.COUNTS[key]
     got = ops.residual_norms(rows, center)
-    assert ops.RESIDUAL_LAUNCHES == before + 1, label
+    assert launches.COUNTS[key] == before + 1, label
     assert got.dtype == torch.float32 and got.shape == (len(rows),), label
     assert got.device == center.device, label
     # the same f32 differences summed in f64 on both sides: within 2 ulp

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro.serve import chaos as jchaos
-from repro_torch.kernels import mm_aggregate, ops, tuning
+from repro_torch.kernels import launches, mm_aggregate, ops, tuning
 from repro_torch.scenarios import metrics
 from repro_torch.scenarios.spec import ScenarioSpec
 from repro_torch.serve import buffer as sbuf
@@ -255,7 +255,7 @@ def test_launch_program_equals_the_eager_aggregate(backend):
     engine = ops.AggregationEngine(backend=backend)
     with ops.record_workloads() as records:
         program = engine.lower_launch(k, m, torch.float32, weighted=True,
-                                      donate=True, device="cpu").compile()
+                                      device="cpu").compile()
     want = engine.aggregate(x, a)
     with ops.record_workloads() as eager:
         engine.aggregate(x, a)
@@ -315,10 +315,10 @@ def test_unweighted_program_takes_no_weights():
 
 
 def test_cpu_launches_count_nothing():
-    before = dict(mm_aggregate.LAUNCHES)
+    before = launches.COUNTS.copy()
     svc, _ = make_service(backend="pallas")
     fill_full_cohort(svc, value=0.5)
-    assert svc.round == 1 and mm_aggregate.LAUNCHES == before
+    assert svc.round == 1 and launches.COUNTS == before
 
 
 def test_cache_state_fingerprints_the_tuning_cache(monkeypatch, tmp_path):

@@ -100,7 +100,6 @@ class Pair:
         self.s = ssvc.AggregationService(
             np.zeros(DIM, np.float32),
             config=ssvc.ServeConfig(backend=torch_backend,
-                                    interpret=interpret,
                                     retry=sretry.RetryPolicy(**retry_kw),
                                     **CFG),
             clock=self.sclock, seed=3,

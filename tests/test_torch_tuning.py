@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import launches
 from repro_torch.kernels import mm_aggregate as TK
 from repro_torch.kernels import ops, tuning
 
@@ -120,11 +121,9 @@ def test_cache_state_changes_with_a_winner():
 
 
 def test_sweep_leaves_the_launch_counts_as_they_were():
-    before = (dict(TK.LAUNCHES), dict(TK.LAUNCHES_BY_VARIANT),
-              dict(TK.LAUNCHES_BY_SHAPE))
+    before = launches.COUNTS.copy()
     tuning.autotune(8, 64, 1, reps=1, device="cpu")
-    assert (TK.LAUNCHES, TK.LAUNCHES_BY_VARIANT, TK.LAUNCHES_BY_SHAPE) == \
-        before
+    assert launches.COUNTS == before
 
 
 @pytest.mark.parametrize("k,m,n", [(8, 300, 1), (8, 300, 3)])
