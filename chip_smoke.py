@@ -379,7 +379,8 @@ WIDTH_AGENTS = 8
 # (M, N, weighted, kind) so that every variant meets narrow, ragged and
 # wide M, N = 1, 5 and 32, both medians, ties and the MAD floor
 PARITY_K = (1, 2, 5, 8, 9, 16, 17, 32, 33, 64)
-PARITY_KINDS = ("contaminated", "ties", "all_equal", "massless")
+PARITY_KINDS = ("contaminated", "ties", "all_equal", "massless",
+                "exact_half")
 PARITY_EDGES = ((10, 1, False, "contaminated"), (10, 5, True, "ties"),
                 (4099, 32, True, "contaminated"), (4099, 1, True, "all_equal"),
                 (65536, 1, False, "all_equal"), (65536, 5, True, "ties"),
@@ -431,7 +432,28 @@ TWO_PASS_CASES = (
     (70, 4099, 1, True, 32, "ties"),
     (65, 4099, 1, False, None, "all_equal"),
     (300, 65539, 1, True, None, "all_equal"),
+    # one K block, the group layout: 65, 100 and 301 agents over 2^16
+    # columns at N = 1 and 3, ties and massless (zero-weight) rows
+    (65, 65536, 1, True, None, "contaminated"),
+    (65, 65536, 3, True, None, "ties"),
+    (100, 65536, 1, True, None, "massless"),
+    (100, 65536, 3, True, None, "contaminated"),
+    (301, 65536, 1, True, None, "ties"),
+    (301, 65536, 3, True, None, "massless"),
+    (100, 65536, 1, False, None, "contaminated"),
+    (301, 65537, 1, False, None, "ties"),
+    (40, 4099, 2, True, 64, "ties"),
+    (16, 4099, 1, True, 16, "contaminated"),
+    (128, 65536, 1, True, None, "exact_half"),
+    (301, 65536, 3, True, None, "exact_half"),
 )
+# full-width two-pass parity (K, M, N, dtype, weighted): the service's
+# launch and the large-cohort layer's weighted twin over one decoder
+# layer, the diffusion batch, and bf16 at 2^20
+TWO_PASS_WIDE = ((128, 15_730_944, 1, "float32", True),
+                 (512, 15_730_944, 1, "float32", True),
+                 (256, 65_536, 256, "float32", True),
+                 (128, 1 << 20, 1, "bfloat16", True))
 # the large cohort aggregated layer by layer: 512 participating clients
 # (examples/scenario_sweep.py large_cohort, 1024 at participation 0.5)
 # over the parameters of one Qwen3-0.6B decoder layer, the last 64
@@ -910,7 +932,10 @@ class Smoke:
         for k, nc, bk, bm in ((512, 1, 512, 8), (1024, 1, 512, 8),
                               (8192, 1, 512, 4), (256, 64, 256, 8),
                               (96, 2, 32, 4), (2048, 1, 32, 8),
-                              (65, 1, 128, 1)):
+                              (65, 1, 128, 1), (128, 1, 128, 64),
+                              (512, 1, 512, 16), (256, 64, 256, 32),
+                              (301, 3, 512, 16), (12, 2, 16, 256),
+                              (40, 1, 64, 128)):
             got = libs["mm_two_pass"].mm_two_pass_smem_bytes(k, nc, bk, bm)
             assert got == mk.two_pass_smem_bytes(k, nc, bk, bm), \
                 (k, nc, bk, bm, got)
@@ -979,8 +1004,12 @@ class Smoke:
         the case's row (``ok`` False where it disagrees).  ``kind``:
         contaminated (20% of the rows shifted by 1000), ties (multiples of
         0.5 under uniform weights) or all_equal (every 7th column one
-        constant, the MAD floor, beside contaminated columns) or massless
-        (contaminated, the second K block's weights 0)."""
+        constant, the MAD floor, beside contaminated columns), massless
+        (contaminated, the second K block's weights 0; with one K block
+        every third row's) or exact_half (contaminated, 64 rows of weight
+        1/64 a column, the rest 0: the sorted-order mass reaches exactly
+        one half).  The plain version runs at most 2^20 columns at a time
+        (fewer where K N is large), so its planes fit the card."""
         torch = self.torch
         from repro_torch.core import location
         from repro_torch.kernels import mm_aggregate as mk
@@ -1002,26 +1031,42 @@ class Smoke:
             a = torch.full((k, n), 1.0 / k, device=self.dev)
         else:
             a = torch.rand((k, n), generator=g, device=self.dev) * 0.9 + 0.1
-            if kind == "massless":
+            if kind == "massless" and plan.num_k_blocks > 1:
                 a[plan.block_k:2 * plan.block_k] = 0.0
+            elif kind == "massless":
+                a[::3] = 0.0
+            elif kind == "exact_half":
+                a.zero_()
+                for j in range(n):
+                    a[torch.randperm(k, generator=g, device=self.dev)[:64],
+                      j] = 1.0
             a = location.normalize_weights(a, dtype=torch.float32)
         run = mk.two_pass if path == "two_pass" else mk.single_pass
         got = self.not_counted(lambda: run(x, a, plan, weighted=weighted))
-        xp, ap = mk._pad_inputs(x, a, plan=plan)
-        if path == "two_pass":
-            want = mk.mm_two_pass_plain(xp, ap, k=k, block_k=plan.block_k,
-                                        weighted=weighted)
-        else:
-            want = mk.mm_single_pass_plain(xp, ap, k=k, weighted=weighted)
-        want = want[:, :m]
-        err = float((got.float() - want.float()).abs().max())
         scale = max(1.0, float(x.float().abs().max()))
-        if dtype == torch.float32:
-            ok = err <= 1e-5 * scale
-        else:
-            bits = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
-            close = (got.float() - want.float()).abs() <= 1e-5 * scale
-            ok = bool(((bits <= 1) | close).all())
+        err, ok = 0.0, True
+        chunk = min(1 << 20, max(1024, (1 << 28) // (k * n)))
+        for lo in range(0, m, chunk):
+            xc = x[:, lo:lo + chunk]
+            pc = mk.launch_plan(k, xc.shape[1], n, dtype=dtype,
+                                block_k=plan.block_k, path=path,
+                                variant=plan.variant)
+            xp, ap = mk._pad_inputs(xc, a, plan=pc)
+            if path == "two_pass":
+                want = mk.mm_two_pass_plain(xp, ap, k=k, block_k=plan.block_k,
+                                            weighted=weighted)
+            else:
+                want = mk.mm_single_pass_plain(xp, ap, k=k, weighted=weighted)
+            want, gc = want[:, :xc.shape[1]], got[:, lo:lo + xc.shape[1]]
+            d = (gc.float() - want.float()).abs()
+            err = max(err, float(d.max()))
+            if dtype == torch.float32:
+                ok = ok and err <= 1e-5 * scale
+            else:
+                bits = (gc.view(torch.int16).int()
+                        - want.view(torch.int16).int()).abs()
+                ok = ok and bool(((bits <= 1) | (d <= 1e-5 * scale)).all())
+            del xp, ap, want, d
         name = "two_pass" if path == "two_pass" else "single_pass"
         if dtype == torch.float32:
             self.parity_err[name] = max(self.parity_err[name], err)
@@ -1045,6 +1090,12 @@ class Smoke:
             for k, m, n, w, bk, kind in TWO_PASS_CASES:
                 rows.append(self._parity_case(k, m, n, dtype, w, "two_pass",
                                               bk, kind=kind))
+            for k, m, n, dname, w in TWO_PASS_WIDE:
+                if mk._as_dtype(dname) == dtype:
+                    rows.append(self._parity_case(k, m, n, dtype, w,
+                                                  "two_pass"))
+                    emit(dict(rows[-1], phase="parity_wide"))
+                    torch.cuda.empty_cache()
             # every variant, forced through the plan, at every edge
             for variant in mk.SINGLE_PASS_VARIANTS:
                 max_k = mk.VARIANT_MAX_K.get(variant, max(PARITY_K))
@@ -2343,6 +2394,13 @@ class Smoke:
         (program,) = svc.exec_cache.programs()
         assert program.plan.path == "two_pass", program.plan
         assert program.plan.num_k_blocks == 1, program.plan
+        # the launch is the group layout's: the C entry point names it
+        from repro_torch.kernels import mm_aggregate as mk
+        bk = program.plan.block_k
+        kernel = mk.launch_query(mk.kernel_call(
+            program.plan, k=k, m=m))["instantiation"]
+        assert kernel == (f"mm_two_pass<{mk.two_pass_rows(bk)}, true, float, "
+                          f"{mk.two_pass_lanes(bk)}>"), kernel
         entry = self.measure_program(
             "mm_two_pass (serve, 128-client cohort layer)",
             f"K={k} M={m} N=1 f32 (service, graph replay)", program,
@@ -2364,7 +2422,7 @@ class Smoke:
               "residual_profiler_ms": residual["profiler_ms"],
               "finite_ms": finite["ms"],
               "finite_profiler_ms": finite["profiler_ms"],
-              "path": program.plan.path,
+              "path": program.plan.path, "kernel": kernel,
               "block_m": program.plan.block_m,
               "block_k": program.plan.block_k,
               "num_k_blocks": program.plan.num_k_blocks,

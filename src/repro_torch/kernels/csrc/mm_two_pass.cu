@@ -16,64 +16,100 @@
 // bytes read, ~25 per byte at T = 10 against the card's 20.  The
 // large-cohort layer launch, 512 clients over one Qwen3-0.6B decoder
 // layer (K = 512, M = 15,730,944, N = 1), is bound at 12.15 ms by its
-// operations (bytes alone: 9.64 ms; chip_smoke.mm_ops).
+// operations (bytes alone: 9.64 ms; chip_smoke.mm_ops).  In practice the
+// kernel is bound by instruction issue: sorting, cumulative sums and
+// reductions cost far more instructions than the modelled operations.
 //
-// What held the first port back, and what this design does about it:
-//   * It sorted by counting ranks, K bk shared-memory compares per column
-//     (262,144 at K = 512).  Here one warp owns one column: lane l holds
-//     bk / 32 of its rows in registers (RPL, "rows per lane"), and a warp
+// Two layouts, one kernel: mm_two_pass<RPL, WEIGHTED, T, LANES>, RPL rows
+// a lane and LANES lanes a column.
+//
+// One K block (kb == 1, every launch with K <= 512 by default): the group
+// layout, mm_two_pass<R, W, T, bk / R>, R = 16 rows a lane up to bk = 128
+// and 32 above (LANES = 1 where bk <= R).  The serve cohort's launch is
+// mm_two_pass<16, true, float, 8>.
+//   * A column's B = R LANES rows are held by a group of LANES lanes, R a
+//     lane, read straight from HBM into registers (lane li holds rows
+//     q LANES + li, so one load instruction of a warp reads LANES rows of
+//     32 / LANES neighbouring columns).  The group sorts them with the
+//     bitonic network below: of the log2(B)(log2(B)+1)/2 stages only those
+//     at distances >= R cross lanes (6 of 28 at bk = 128, against 15 when
+//     a warp sorts a column at 4 rows a lane).  Weighted columns sort
+//     64-bit (key, row) pairs (the plain version's stable argsort) at one
+//     comparison a compare-exchange, unweighted ones 32-bit keys by min
+//     and max.
+//   * The sorted values (and, weighted, their rows) go to the group's
+//     slots of the block's strips in shared memory.  The work that is
+//     serial or a reduction per column stays in the group, so no barrier
+//     of the block is needed between tiles: the weights summed in sorted
+//     order in f32 from position 0, lane after lane (the half mass), then
+//     by each lane again from its carry-in to the position that crosses
+//     half; the MAD by selection, which each lane of the group runs on
+//     the strip: the |x - med| of a sorted column fall to the split at
+//     med and rise after it, so the rank-r one is the r-th of two sorted
+//     runs, found by a binary search over how many the left run gives.
+//   * IRLS: each lane sums its R rows in registers in reciprocal form, and
+//     log2(LANES) butterfly steps of shuffles (3 at bk = 128) leave the
+//     group's sum in each of its lanes.  Weighted rows are the sorted
+//     values with their gathered weights; unweighted rows are the rows as
+//     loaded, with their own weights.
+//   * A block holds `cols` columns (a power of two, at most 256 / LANES,
+//     from M as the launch plan picks it), cols LANES threads (at least
+//     one warp: the groups past `cols` hold no column).  Shared memory:
+//     the (nc, bk) weight slice, nc masses and the strips, laid out for
+//     the widest block so their offsets are constants: 6 R 256 bytes,
+//     24.5 KB at bk = 128, 48.5 KB above.  Blocks of 16 rows a lane are
+//     held to 85 registers, three 256-thread blocks (24 warps) an SM;
+//     those of 32 to 128, two (the weighted 512-row ones take one).
+//   * Budget a column at (K, N) = (128, 1), weighted, in warp
+//     instructions: the sort ~430 (22 in-lane stages of 8 compare-
+//     exchanges of 6 instructions and 6 cross-lane stages of 16 elements
+//     of 7, over 4 columns a warp), IRLS ~310 (10 steps of 128 rows of 7
+//     instructions, plus 6 shuffles a step), the cumulative sums ~35 and
+//     the MAD ~50, loads, strips and gathers ~60: ~880, against ~1,800 for
+//     the warp layout.  The sort's compare-exchanges run on the half-rate
+//     integer pipe, so the sort, not IRLS, sets the pace: ~450 integer
+//     instructions a column bound the launch at ~15 ms.
+//
+// Several K blocks (kb > 1): the warp layout, mm_two_pass<bk / 32, W, T,
+// 32> (RPL = 1 for bk <= 32), one warp a column, as the first redesign
+// built it:
+//   * Lane l holds bk / 32 of a block's rows in registers, and a warp
 //     bitonic network orders them, in-lane stages on registers and
 //     cross-lane stages by __shfl_xor_sync (45 stages of 16 compare-
 //     exchanges a lane at bk = 512).  The warp's element e = lane * RPL +
 //     q, so the first log2(RPL) distances of every merge stay inside a
 //     lane.  Each merge level opens with a mirror stage (e against e ^
 //     (2^s - 1)), so every comparator ascends and none picks its direction
-//     at run time.  Weighted columns sort 64-bit (key, row) pairs: the
-//     order is the plain version's stable argsort, so weights gathered in
-//     that order are summed in its f32 sequence and a crossing at exactly
-//     1/2 picks the row it picks.  Unweighted columns sort 32-bit keys.
-//   * It launched one block of 64 columns per tile, four blocks in all at
-//     the cohort's (512, 256, 1), and ran IRLS over 512 rows serially per
-//     thread with two IEEE divisions per row.  Here a block is `cols`
-//     warps over `cols` columns (8, or fewer where the tile would not fit
-//     or M gives fewer tiles than the card has SMs; the launch plan picks
-//     it), and the grid walks the column tiles grid-stride on as many
-//     blocks as the card holds at once (asked of the card, per device).
-//     IRLS is split across the warp's lanes in reciprocal form (one
-//     division per (column, n, step)), and num and den are reduced by a
-//     butterfly of shuffles, which leaves the same sum in every lane.
-//   * Its combine ranked the KB block statistics in O(KB^3).  Here the
-//     (value, block) pairs of one (column, n) are sorted once: in
-//     registers, one pair a lane, for KB <= 32; in a per-warp strip of
-//     shared memory above that, so any KB launches.  The masses are then
-//     added in that order in f32.
-//   * It kept the whole (K_pad, N) weight matrix and (KB, N, bm) x 2
-//     stats in shared memory, so (K, N) = (256, 256) could not launch.
-//     Here N is walked in chunks of nc weight columns staged as an
-//     (nc, K_pad) slice (once per block where nc = N), and the stats are
-//     (2 KB, cols) floats whatever N is: a column is sorted once per K
-//     block and each of the N weight planes reuses that order.  The K
-//     block masses that the combine halves are summed inside this kernel,
-//     in row order in f32 (the plain version's order), from the staged
-//     slice: the launch is the call's only kernel.
-//   * Loads are coalesced and streamed.  A chunk of bk rows x cols columns
-//     is read by the whole block, neighbouring threads on one row's
-//     contiguous columns, into registers, and written to the tile after
-//     the current chunk has been computed: the next chunk's HBM latency
-//     hides behind this one's sort.  Staging through registers lets every
-//     element land at a swizzled address (column c of row r at r cols +
-//     (c + r / (32 / cols)) mod cols), so a warp reading 32 consecutive
-//     rows of its column hits 32 distinct banks; it also takes bf16, and
-//     ragged columns, on one path.
-//   * The MAD needs no second sort.  Over a sorted block |x - med| falls
-//     and then rises (sentinels, +inf, extend the rise): one bitonic merge
-//     of log2(32 RPL) stages sorts it.
-//   * With several K blocks and weights, the sorted block is written back
-//     over its rows of the tile, with its row indices beside it, so every
+//     at run time.
+//   * A block is `cols` warps over `cols` columns (8, or fewer where the
+//     tile would not fit or M gives fewer tiles than the card has SMs),
+//     and IRLS is split across the warp's lanes in reciprocal form, num
+//     and den reduced by a butterfly of shuffles.
+//   * The (value, block) pairs of one (column, n) are sorted once for the
+//     combine: in registers, one pair a lane, for KB <= 32; in a per-warp
+//     strip of shared memory above that, so any KB launches.  The masses
+//     are then added in that order in f32.
+//   * N is walked in chunks of nc weight columns staged as an (nc, K_pad)
+//     slice (once per block where nc = N), and the stats are (2 KB, cols)
+//     floats whatever N is: a column is sorted once per K block and each
+//     of the N weight planes reuses that order.  The K block masses that
+//     the combine halves are summed inside this kernel, in row order in
+//     f32 (the plain version's order), from the staged slice: the launch
+//     is the call's only kernel (both layouts).
+//   * A chunk of bk rows x cols columns is read by the whole block,
+//     neighbouring threads on one row's contiguous columns, into
+//     registers, and written to the tile after the current chunk has been
+//     computed.  Each element lands at a swizzled address (column c of row
+//     r at r cols + (c + r / (32 / cols)) mod cols), so a warp reading 32
+//     consecutive rows of its column hits 32 distinct banks.
+//   * The block MAD merges |x - med| (falling, then rising) with one
+//     bitonic merge.  With weights, the sorted block is written back over
+//     its rows of the tile, with its row indices beside it, so every
 //     later weight plane reads it without sorting again.
-//   * __launch_bounds__ per instantiation: the unweighted 512-row blocks
-//     (the large-cohort path) are held to 128 registers, two 256-thread
-//     blocks an SM; the others take what they need, so none spills.
+//   * __launch_bounds__ per instantiation: the unweighted 512-row warp
+//     blocks are held to 128 registers, two 256-thread blocks an SM, as
+//     are all group-layout blocks; the others take what they need, so none
+//     spills.
 #include "mm_common.cuh"
 
 namespace {
@@ -82,10 +118,21 @@ using mm::ilog2;
 using mm::key_value;
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxCols = 8;               // columns a block, one warp each
+constexpr int kMaxCols = 8;               // warp layout: columns a block, one warp each
 constexpr int kMaxThreads = 32 * kMaxCols;
 constexpr int kMaxRowsPerLane = 16;       // bk <= 512
 constexpr int kRegCombine = 32;           // K blocks a warp combines in registers
+constexpr int kGroupThreads = 256;        // group layout: threads of the widest block
+constexpr int kGroupSplit = 128;          // group layout: 16 rows a lane up to this bk, then 32
+
+// Rows a lane and lanes a column of the group layout for a K block of bk
+// rows (one K block).
+__host__ __device__ constexpr int group_rows(int bk) {
+  return bk > kGroupSplit ? 32 : 16;
+}
+__host__ __device__ constexpr int group_lanes(int bk) {
+  return bk > group_rows(bk) ? bk / group_rows(bk) : 1;
+}
 constexpr int kDefaultSmem = 48 * 1024;   // dynamic shared memory without opt-in
 constexpr int kMaxDevices = 16;
 static_assert(kMaxThreads == mm::kThreads, "one warp per column of a tile");
@@ -97,10 +144,33 @@ __host__ __device__ inline int next_pow2(int n) {
   return p;
 }
 
+// Orders (a, b) ascending on one comparison (two 32-bit compares for a
+// 64-bit key, and four selects); 32-bit keys take a min and a max.
 template <typename K>
-__device__ __forceinline__ K kmin(K a, K b) { return b < a ? b : a; }
+__device__ __forceinline__ void exchange(K& a, K& b) {
+  const bool swap = b < a;
+  const K lo = swap ? b : a, hi = swap ? a : b;
+  a = lo;
+  b = hi;
+}
+template <>
+__device__ __forceinline__ void exchange(uint32_t& a, uint32_t& b) {
+  const uint32_t lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+// The value a lane keeps of (mine, its partner's): the smaller where it
+// is the lower of the two.
 template <typename K>
-__device__ __forceinline__ K kmax(K a, K b) { return b < a ? a : b; }
+__device__ __forceinline__ K keep(K mine, K other, bool lower) {
+  return (other < mine) == lower ? other : mine;
+}
+template <>
+__device__ __forceinline__ uint32_t keep(uint32_t mine, uint32_t other,
+                                         bool lower) {
+  return lower ? min(mine, other) : max(mine, other);
+}
 
 struct Params {
   int64_t ld, m;
@@ -116,8 +186,9 @@ __device__ __forceinline__ int tile_at(const Params& p, int r, int c) {
 }
 
 // One ascending compare-exchange stage at distance 2^t of a sequence of
-// 32 RPL elements held by a warp as e = lane * RPL + q: the element with
-// bit t clear keeps the smaller key.
+// LANES RPL elements held by a group of LANES lanes (the warp's aligned
+// runs of LANES lanes) as e = lane * RPL + q: the element with bit t clear
+// keeps the smaller key.  Partners never leave the group.
 template <int RPL, typename K>
 __device__ __forceinline__ void warp_stage(K (&v)[RPL], int lane, int t) {
   constexpr int LOGR = ilog2(RPL);
@@ -125,19 +196,13 @@ __device__ __forceinline__ void warp_stage(K (&v)[RPL], int lane, int t) {
     const int lm = 1 << (t - LOGR);
     const bool lower = (lane & lm) == 0;
 #pragma unroll
-    for (int q = 0; q < RPL; ++q) {
-      const K o = __shfl_xor_sync(kFull, v[q], lm);
-      v[q] = lower ? kmin(v[q], o) : kmax(v[q], o);
-    }
+    for (int q = 0; q < RPL; ++q)
+      v[q] = keep(v[q], __shfl_xor_sync(kFull, v[q], lm), lower);
   } else {  // partner: q ^ 2^t in this lane
 #pragma unroll
     for (int i = 0; i < RPL; ++i) {
       const int j = i ^ (1 << t);
-      if (j > i) {
-        const K lo = kmin(v[i], v[j]), hi = kmax(v[i], v[j]);
-        v[i] = lo;
-        v[j] = hi;
-      }
+      if (j > i) exchange(v[i], v[j]);
     }
   }
 }
@@ -152,11 +217,7 @@ __device__ __forceinline__ void warp_flip(K (&v)[RPL], int lane, int s) {
 #pragma unroll
     for (int i = 0; i < RPL; ++i) {
       const int j = i ^ ((1 << s) - 1);
-      if (j > i) {
-        const K lo = kmin(v[i], v[j]), hi = kmax(v[i], v[j]);
-        v[i] = lo;
-        v[j] = hi;
-      }
+      if (j > i) exchange(v[i], v[j]);
     }
   } else {  // lane ^ (2^(s - LOGR) - 1), q ^ (RPL - 1)
     const int lm = (1 << (s - LOGR)) - 1;
@@ -166,17 +227,17 @@ __device__ __forceinline__ void warp_flip(K (&v)[RPL], int lane, int s) {
       const int r = RPL - 1 - q;
       const K oq = __shfl_xor_sync(kFull, v[r], lm);   // the partner's v[r]
       const K orr = __shfl_xor_sync(kFull, v[q], lm);  // the partner's v[q]
-      v[q] = lower ? kmin(v[q], oq) : kmax(v[q], oq);
-      if (r != q) v[r] = lower ? kmin(v[r], orr) : kmax(v[r], orr);
+      v[q] = keep(v[q], oq, lower);
+      if (r != q) v[r] = keep(v[r], orr, lower);
     }
   }
 }
 
-// Ascending bitonic sort of the warp's 32 RPL elements: each merge level
-// is a mirror stage, then ascending half-cleaners.
-template <int RPL, typename K>
+// Ascending bitonic sort of each group's LANES RPL elements: each merge
+// level is a mirror stage, then ascending half-cleaners.
+template <int RPL, int LANES, typename K>
 __device__ __forceinline__ void warp_sort(K (&v)[RPL], int lane) {
-  constexpr int LOG = ilog2(RPL) + 5;
+  constexpr int LOG = ilog2(RPL) + ilog2(LANES);
 #pragma unroll
   for (int s = 1; s <= LOG; ++s) {
     warp_flip<RPL>(v, lane, s);
@@ -185,7 +246,7 @@ __device__ __forceinline__ void warp_sort(K (&v)[RPL], int lane) {
   }
 }
 
-// Ascending sort of a bitonic sequence (falling, then rising).
+// Ascending sort of a bitonic sequence (falling, then rising) of a warp.
 template <int RPL, typename K>
 __device__ __forceinline__ void warp_merge(K (&v)[RPL], int lane) {
   constexpr int LOG = ilog2(RPL) + 5;
@@ -277,7 +338,7 @@ __device__ __forceinline__ uint64_t stat_pair(float v, int b) {
   return ((uint64_t)mm::sort_key(v) << 32) | (uint32_t)b;
 }
 
-// Mass-weighted median of the kb block statistics st[b * cols] of one
+// Mass-weighted median of the kb > 1 block statistics st[b * cols] of one
 // (column, n): the (value, block) pairs in ascending order (the plain
 // version's stable argsort), masses mass[b * stride] added in that order
 // in f32, the crossing at `half` with no epsilon; 0 where none crosses.
@@ -287,10 +348,9 @@ __device__ __forceinline__ uint64_t stat_pair(float v, int b) {
 __device__ float combine(const float* st, int cols,
                          const float* __restrict__ mass, int stride, int kb,
                          float half, uint64_t* strip, int lane) {
-  if (kb == 1) return mass[0] >= half && 0.0f < half ? st[0] : 0.0f;
   if (kb <= kRegCombine) {
     uint64_t s[1] = {lane < kb ? stat_pair(st[lane * cols], lane) : ~0ull};
-    warp_sort<1>(s, lane);
+    warp_sort<1, 32>(s, lane);
     const float mine = lane < kb ? mass[(int)(uint32_t)s[0] * stride] : 0.0f;
     float cw = 0.0f;
     int hit = -1;
@@ -400,17 +460,14 @@ __device__ __forceinline__ void stage_weights(float* ws, float* ms,
   }
 }
 
-// Blocks an SM must hold: two for the unweighted 512-row blocks (the
-// large-cohort path; 128 registers fit its sort without spilling), else
-// one, so that no instantiation spills to local memory.
-template <int RPL, bool WEIGHTED>
-constexpr int min_blocks() { return !WEIGHTED && RPL == 16 ? 2 : 1; }
+// ---- several K blocks: one warp a column ----------------------------------
 
 template <int RPL, bool WEIGHTED, typename T>
-__global__ void __launch_bounds__(kMaxThreads, (min_blocks<RPL, WEIGHTED>()))
-mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
-            T* __restrict__ out, Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void warp_columns(const T* __restrict__ x,
+                                             const float* __restrict__ a,
+                                             T* __restrict__ out,
+                                             const Params& p,
+                                             unsigned char* smem) {
   const int k_pad = p.kb * p.bk;
   const int strip_len = p.kb > kRegCombine ? next_pow2(p.kb) : 0;
   uint64_t* strips = reinterpret_cast<uint64_t*>(smem);        // (cols, P)
@@ -430,8 +487,8 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
 
   T pre[RPL];
   load_chunk(pre, x, p, t * p.cols, 0);
-  float v[RPL], xs[RPL];  // a block's rows in row order; sorted (KB = 1)
-  int rw[RPL];            // sorted positions' rows (weighted, KB = 1)
+  float v[RPL], xs[RPL];  // a block's rows in row order; sorted
+  int rw[RPL];            // sorted positions' rows (weighted)
   for (; t < tiles; t += gridDim.x) {
     const int64_t m0 = t * p.cols;
     // ---- pass 1: sort each K block of this warp's column once ----
@@ -456,22 +513,21 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
           s[q] = j < cnt ? ((uint64_t)mm::sort_key(v[q]) << 32) | (uint32_t)j
                          : ~0ull;  // sentinel: after every row, NaN included
         }
-        warp_sort<RPL>(s, lane);
+        warp_sort<RPL, 32>(s, lane);
 #pragma unroll
         for (int q = 0; q < RPL; ++q) {
           const bool valid = lane * RPL + q < cnt;
           xs[q] = valid ? key_value((uint32_t)(s[q] >> 32)) : 0.0f;
           rw[q] = valid ? (int)(uint32_t)s[q] : 0;
         }
-        if (p.kb > 1) {  // position lane * RPL + q back at row q * 32 + lane
-          __syncwarp();
+        // position lane * RPL + q back at row q * 32 + lane
+        __syncwarp();
 #pragma unroll
-          for (int q = 0; q < RPL; ++q) {
-            if (lane * RPL + q < cnt) {
-              const int at = tile_at(p, r0 + q * 32 + lane, col);
-              tile[at] = xs[q];
-              idx[at] = (uint16_t)rw[q];
-            }
+        for (int q = 0; q < RPL; ++q) {
+          if (lane * RPL + q < cnt) {
+            const int at = tile_at(p, r0 + q * 32 + lane, col);
+            tile[at] = xs[q];
+            idx[at] = (uint16_t)rw[q];
           }
         }
       } else {
@@ -479,7 +535,7 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
         for (int q = 0; q < RPL; ++q)
           s[q] = q * 32 + lane < cnt ? mm::sort_key(v[q]) : 0xffffffffu;
-        warp_sort<RPL>(s, lane);
+        warp_sort<RPL, 32>(s, lane);
 #pragma unroll
         for (int q = 0; q < RPL; ++q)
           xs[q] = lane * RPL + q < cnt ? key_value(s[q]) : 0.0f;
@@ -503,18 +559,16 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
       for (int nl = 0; nl < nc; ++nl) {
         const int nn = n0 + nl;
         const float* wn = ws + (size_t)nl * k_pad;
-        float wv[RPL];  // KB = 1: the IRLS weights of the rows in registers
         if (WEIGHTED) {
           for (int b = 0; b < p.kb; ++b) {
             const int r0 = b * p.bk, cnt = min(p.k - r0, p.bk);
-            if (p.kb > 1) {
+            float wv[RPL];
 #pragma unroll
-              for (int q = 0; q < RPL; ++q) {
-                const bool valid = lane * RPL + q < cnt;
-                const int at = tile_at(p, r0 + q * 32 + lane, col);
-                xs[q] = valid ? tile[at] : 0.0f;
-                rw[q] = valid ? idx[at] : 0;
-              }
+            for (int q = 0; q < RPL; ++q) {
+              const bool valid = lane * RPL + q < cnt;
+              const int at = tile_at(p, r0 + q * 32 + lane, col);
+              xs[q] = valid ? tile[at] : 0.0f;
+              rw[q] = valid ? idx[at] : 0;
             }
 #pragma unroll
             for (int q = 0; q < RPL; ++q)
@@ -526,10 +580,6 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
               st[(p.kb + b) * p.cols + col] = mad;
             }
           }
-        } else if (p.kb == 1) {
-#pragma unroll
-          for (int q = 0; q < RPL; ++q)
-            wv[q] = q * 32 + lane < p.k ? wn[q * 32 + lane] : 0.0f;
         }
         __syncwarp();
         const float* mb = ms + nl;  // this plane's block masses
@@ -545,24 +595,17 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
         float mu = mu0;
         for (int it = 0; it < p.num_iters; ++it) {
           float num = 0.0f, den = 0.0f;
-          if (p.kb == 1) {  // rows in registers: sorted (weighted) or not
+          for (int b = 0; b < p.kb; ++b) {
+            const int r0 = b * p.bk, cnt = min(p.k - r0, p.bk);
 #pragma unroll
-            for (int q = 0; q < RPL; ++q)
-              mm::tukey_accumulate(WEIGHTED ? xs[q] : v[q], wv[q], mu, inv,
-                                   num, den);
-          } else {
-            for (int b = 0; b < p.kb; ++b) {
-              const int r0 = b * p.bk, cnt = min(p.k - r0, p.bk);
-#pragma unroll
-              for (int q = 0; q < RPL; ++q) {
-                const int slot = q * 32 + lane;
-                const bool valid = (WEIGHTED ? lane * RPL + q : slot) < cnt;
-                const int at = tile_at(p, r0 + slot, col);
-                const float xv = valid ? tile[at] : 0.0f;
-                const float av =
-                    valid ? wn[r0 + (WEIGHTED ? (int)idx[at] : slot)] : 0.0f;
-                mm::tukey_accumulate(xv, av, mu, inv, num, den);
-              }
+            for (int q = 0; q < RPL; ++q) {
+              const int slot = q * 32 + lane;
+              const bool valid = (WEIGHTED ? lane * RPL + q : slot) < cnt;
+              const int at = tile_at(p, r0 + slot, col);
+              const float xv = valid ? tile[at] : 0.0f;
+              const float av =
+                  valid ? wn[r0 + (WEIGHTED ? (int)idx[at] : slot)] : 0.0f;
+              mm::tukey_accumulate(xv, av, mu, inv, num, den);
             }
           }
           num = warp_sum(num);
@@ -575,6 +618,244 @@ mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
       }
     }
   }
+}
+
+// ---- one K block: a group of LANES lanes a column ---------------------------
+
+// Slot of sorted position e of the block's column c in a strip of R
+// LANES rows of W = 256 / LANES entries (the widest block's columns,
+// whatever the block holds, so every offset is a constant): the columns
+// of row e rotated by (e / R) G.  A group's lanes hold runs of R
+// positions and a warp's G = 32 / LANES groups neighbouring columns, so a
+// warp storing the q-th position of every run hits 32 banks (W >= 32).
+template <int R, int LANES>
+__device__ __forceinline__ int strip_at(int e, int c) {
+  constexpr int W = kGroupThreads / LANES, G = 32 / LANES;
+  return e * W + ((c + (e / R) * G) & (W - 1));
+}
+
+// Rank median of |x - med| over the k sorted values of the column in
+// slot c.  They fall over the positions [0, s) whose values are <= med
+// and rise over [s, k), so with A_i = |x[s - 1 - i] - med| and B_j =
+// |x[s + j] - med| (both ascending) the r + 1 smallest are A_[0, i) and
+// B_[0, r + 1 - i) for the least i with A_i >= B_(r - i): a binary
+// search.  The rank-(k - 1) / 2 and rank-k / 2 values are then the larger
+// of the last ones taken and (k even) the smaller of the next ones.
+template <int R, int LANES>
+__device__ __forceinline__ float mad_select(const float* xs_s, int k,
+                                            float med, int c) {
+  auto xv = [&](int e) { return xs_s[strip_at<R, LANES>(e, c)]; };
+  int lo = 0, hi = k;
+  while (lo < hi) {  // s: the values <= med
+    const int mid = (lo + hi) >> 1;
+    if (xv(mid) <= med) lo = mid + 1;
+    else hi = mid;
+  }
+  const int s = lo, r = (k - 1) / 2;
+  lo = max(0, r + 1 - (k - s));
+  hi = min(r + 1, s);
+  while (lo < hi) {
+    const int i = (lo + hi) >> 1;
+    if (fabsf(xv(s - 1 - i) - med) >= fabsf(xv(s + r - i) - med)) hi = i;
+    else lo = i + 1;
+  }
+  const int i = lo, j = r + 1 - i;
+  const float inf = __int_as_float(0x7f800000);
+  const float d_lo = fmaxf(i > 0 ? fabsf(xv(s - i) - med) : -inf,
+                           j > 0 ? fabsf(xv(s + j - 1) - med) : -inf);
+  if (k & 1) return 0.5f * (d_lo + d_lo);
+  const float d_hi = fminf(i < s ? fabsf(xv(s - 1 - i) - med) : inf,
+                           j < k - s ? fabsf(xv(s + j) - med) : inf);
+  return 0.5f * (d_lo + d_hi);
+}
+
+// The sorted position (li R + q) of a group of LANES lanes whose
+// cumulative weight reaches half the group's mass while the one before is
+// below it (the last such; -1: none), the mass and cumulative sums taken
+// position by position in f32 from position 0: lane li adds its R weights
+// to lane li - 1's sum, one lane at a time.  Every lane of the group
+// returns the same position.
+template <int R, int LANES>
+__device__ __forceinline__ int group_crossing(const float (&wv)[R],
+                                              int lane) {
+  const int li = lane & (LANES - 1), base = lane - li;
+  float carry = 0.0f, cin = 0.0f;
+#pragma unroll
+  for (int s = 0; s < LANES; ++s) {
+    float cw = carry;
+    if (li == s) {
+      cin = cw;
+#pragma unroll
+      for (int q = 0; q < R; ++q) cw += wv[q];
+    }
+    carry = LANES == 1 ? cw : __shfl_sync(kFull, cw, base + s);
+  }
+  const float half = 0.5f * carry;
+  float cw = cin;
+  int hit = -1;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const float prev = cw;
+    cw += wv[q];
+    if (cw >= half && prev < half) hit = li * R + q;
+  }
+  if (LANES == 1) return hit;
+  const unsigned mask = (unsigned)(((1ull << LANES) - 1) << base);
+  const unsigned found = __ballot_sync(kFull, hit >= 0) & mask;
+  // every lane shuffles (a full-mask shuffle in a divergent branch would
+  // make the compiler serialise the warp's collectives)
+  const int last = __shfl_sync(kFull, hit, found ? 31 - __clz(found) : lane);
+  return found ? last : -1;
+}
+
+template <int R, int LANES, bool WEIGHTED, typename T>
+__device__ __forceinline__ void group_columns(const T* __restrict__ x,
+                                              const float* __restrict__ a,
+                                              T* __restrict__ out,
+                                              const Params& p,
+                                              unsigned char* smem) {
+  constexpr int W = kGroupThreads / LANES;  // a strip row's entries
+  const int cols = p.cols, k_pad = p.bk;
+  float* ws = reinterpret_cast<float*>(smem);                   // (nc, k_pad)
+  float* ms = ws + (size_t)p.nc * k_pad;                        // (nc)
+  float* xs_s = ms + p.nc;                                      // (R LANES, W)
+  uint16_t* rw_s = reinterpret_cast<uint16_t*>(xs_s + R * LANES * W);
+
+  const int lane = threadIdx.x & 31, li = lane & (LANES - 1);
+  const int col = threadIdx.x / LANES;  // this group's column of the tile
+  const bool mine = col < cols;         // groups past the tile hold none
+  const int slot = col & (cols - 1);
+  // this lane's run of the strips: positions li R + q at base + q W
+  const int base = strip_at<R, LANES>(li * R, slot);
+  const int64_t tiles = (p.m + cols - 1) / cols;
+  int64_t t = blockIdx.x;
+  if (t >= tiles) return;  // the whole block leaves together
+  const bool staged_once = p.nc >= p.n;
+  if (staged_once) {
+    stage_weights(ws, ms, a, p, 0);
+    __syncthreads();
+  }
+
+  for (; t < tiles; t += gridDim.x) {
+    const int64_t mc = t * cols + col;
+    const bool real = mine && mc < p.m;
+    // ---- the column's rows q LANES + li, sorted by the group ----
+    float v[R];  // unweighted: the rows as loaded; weighted: then sorted
+    const T* xc = x + (real ? mc : 0);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int r = q * LANES + li;
+      v[q] = real && r < p.k ? mm::to_f32(xc[(int64_t)r * p.ld]) : 0.0f;
+    }
+    __syncwarp();  // the last tile's readers of the strips are done
+    if constexpr (WEIGHTED) {
+      uint64_t s[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = q * LANES + li;
+        s[q] = r < p.k ? ((uint64_t)mm::sort_key(v[q]) << 32) | (uint32_t)r
+                       : ~0ull;  // sentinel: after every row, NaN included
+      }
+      warp_sort<R, LANES>(s, lane);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const bool valid = li * R + q < p.k;
+        v[q] = valid ? key_value((uint32_t)(s[q] >> 32)) : 0.0f;
+        if (mine && valid) {
+          xs_s[base + q * W] = v[q];
+          rw_s[base + q * W] = (uint16_t)s[q];
+        }
+      }
+    } else {
+      uint32_t s[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        s[q] = q * LANES + li < p.k ? mm::sort_key(v[q]) : 0xffffffffu;
+      warp_sort<R, LANES>(s, lane);
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (mine && li * R + q < p.k) xs_s[base + q * W] = key_value(s[q]);
+    }
+    __syncwarp();  // the group's strip is whole before its lanes read it
+
+    // ---- per weight column: median, MAD and IRLS in the group ----
+    for (int n0 = 0; n0 < p.n; n0 += p.nc) {
+      if (!staged_once) {
+        __syncthreads();  // the previous chunk's readers are done
+        stage_weights(ws, ms, a, p, n0);
+        __syncthreads();
+      }
+      const int nc = min(p.nc, p.n - n0);
+      for (int nl = 0; nl < nc; ++nl) {
+        const float* wn = ws + (size_t)nl * k_pad;
+        float wv[R];  // weighted: the sorted positions'; else the rows'
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          if (WEIGHTED)
+            wv[q] = li * R + q < p.k ? wn[rw_s[base + q * W]] : 0.0f;
+          else
+            wv[q] = q * LANES + li < p.k ? wn[q * LANES + li] : 0.0f;
+        }
+        float med;
+        if (WEIGHTED) {
+          const int hit = group_crossing<R, LANES>(wv, lane);
+          med = hit < 0 ? 0.0f : xs_s[strip_at<R, LANES>(hit, slot)];
+        } else {
+          med = 0.5f * (xs_s[strip_at<R, LANES>((p.k - 1) / 2, slot)] +
+                        xs_s[strip_at<R, LANES>(p.k / 2, slot)]);
+        }
+        // the combine of one K block: its statistics where its mass
+        // reaches half the total
+        const float mass = ms[nl], half = 0.5f * mass;
+        const bool crosses = mass >= half && 0.0f < half;
+        const float mu0 = crosses ? med : 0.0f;
+        const float mad =
+            crosses ? mad_select<R, LANES>(xs_s, p.k, med, slot) : 0.0f;
+        const float scale = fmaxf(mm::kMadConsistency * mad, mm::kScaleFloor);
+        const float inv = 1.0f / (p.c * scale);
+        float mu = mu0;
+        for (int it = 0; it < p.num_iters; ++it) {
+          float num = 0.0f, den = 0.0f;
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+            mm::tukey_accumulate(v[q], wv[q], mu, inv, num, den);
+#pragma unroll
+          for (int off = LANES / 2; off > 0; off >>= 1) {
+            num += __shfl_xor_sync(kFull, num, off);
+            den += __shfl_xor_sync(kFull, den, off);
+          }
+          mu = mm::irls_update(num, den, mu);
+        }
+        if (li == 0 && real)
+          out[(int64_t)(n0 + nl) * p.m + mc] = mm::from_f32<T>(mu);
+      }
+    }
+  }
+}
+
+// Blocks an SM must hold: three for group-layout blocks of 16 rows a lane
+// (85 registers), two for those of 32 (128 registers fit their sorts)
+// but the weighted 512-row ones and for the unweighted 512-row warp
+// blocks, else one, so that no instantiation spills to local memory.
+template <int RPL, bool WEIGHTED, int LANES>
+constexpr int min_blocks() {
+  if (LANES < 32) return RPL == 16 ? 3 : WEIGHTED && LANES == 16 ? 1 : 2;
+  return !WEIGHTED && RPL == 16 ? 2 : 1;
+}
+
+template <int LANES>
+constexpr int max_threads() { return LANES < 32 ? kGroupThreads : kMaxThreads; }
+
+template <int RPL, bool WEIGHTED, typename T, int LANES>
+__global__ void __launch_bounds__((max_threads<LANES>()),
+                                  (min_blocks<RPL, WEIGHTED, LANES>()))
+mm_two_pass(const T* __restrict__ x, const float* __restrict__ a,
+            T* __restrict__ out, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (LANES == 32)
+    warp_columns<RPL, WEIGHTED>(x, a, out, p, smem);
+  else
+    group_columns<RPL, LANES, WEIGHTED>(x, a, out, p, smem);
 }
 
 // What one instantiation was last granted and found on one device: the
@@ -592,10 +873,10 @@ struct Occupancy {
 // The occupancy of this launch: asked of the current device once per
 // instantiation, device and (threads, smem); both the shared-memory
 // opt-in and the SM count belong to a device.
-template <int RPL, bool WEIGHTED, typename T>
+template <int RPL, bool WEIGHTED, typename T, int LANES>
 cudaError_t resident_blocks(int threads, size_t smem, Occupancy* found) {
   static Occupancy cached[kMaxDevices];
-  auto kern = mm_two_pass<RPL, WEIGHTED, T>;
+  auto kern = mm_two_pass<RPL, WEIGHTED, T, LANES>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -629,15 +910,17 @@ struct Report {
   int64_t* blocks;
 };
 
-// One launch: min(column tiles, blocks the card holds at once) blocks of
-// one warp a column walk the tiles grid-stride.  With no resident block
-// (per_sm 0) it fails rather than launch a grid that cannot run.
-template <int RPL, bool WEIGHTED, typename T>
+// One launch: min(column tiles, blocks the card holds at once) blocks
+// walk the tiles grid-stride, each `cols` columns over 32 cols threads
+// (warp layout) or max(32, cols LANES) (group layout).  With no resident
+// block (per_sm 0) it fails rather than launch a grid that cannot run.
+template <int RPL, bool WEIGHTED, typename T, int LANES>
 int launch(const void* x, const float* a, void* out, const Params& p,
            size_t smem, cudaStream_t stream, const Report& report) {
-  const int threads = 32 * p.cols;
+  const int threads = LANES == 32 ? 32 * p.cols : max(32, p.cols * LANES);
   Occupancy occ;
-  cudaError_t err = resident_blocks<RPL, WEIGHTED, T>(threads, smem, &occ);
+  cudaError_t err =
+      resident_blocks<RPL, WEIGHTED, T, LANES>(threads, smem, &occ);
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = (p.m + p.cols - 1) / p.cols;
   const int64_t held = (int64_t)occ.sms * occ.per_sm;
@@ -648,35 +931,59 @@ int launch(const void* x, const float* a, void* out, const Params& p,
   }
   if (report.query) {
     snprintf(report.query->name, report.query->name_len,
-             "mm_two_pass<%d, %s, %s>", RPL, WEIGHTED ? "true" : "false",
-             mm::type_name<T>());
+             "mm_two_pass<%d, %s, %s, %d>", RPL, WEIGHTED ? "true" : "false",
+             mm::type_name<T>(), LANES);
     return mm::report(report.query, blocks, threads, smem, occ.per_sm,
                       occ.sms);
   }
   if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
-  mm_two_pass<RPL, WEIGHTED, T><<<(unsigned)blocks, threads, smem, stream>>>(
-      static_cast<const T*>(x), a, static_cast<T*>(out), p);
+  mm_two_pass<RPL, WEIGHTED, T, LANES>
+      <<<(unsigned)blocks, threads, smem, stream>>>(
+          static_cast<const T*>(x), a, static_cast<T*>(out), p);
   return (int)cudaGetLastError();
+}
+
+// One launch of the group layout for a K block of BK rows.
+template <int BK, bool WEIGHTED, typename T>
+int launch_group(const void* x, const float* a, void* out, const Params& p,
+                 size_t smem, cudaStream_t s, const Report& r) {
+  return launch<group_rows(BK), WEIGHTED, T, group_lanes(BK)>(x, a, out, p,
+                                                              smem, s, r);
 }
 
 template <bool WEIGHTED, typename T>
 int launch_rows(const void* x, const float* a, void* out, const Params& p,
                 size_t smem, cudaStream_t s, const Report& r) {
-  if (p.bk <= 32) return launch<1, WEIGHTED, T>(x, a, out, p, smem, s, r);
-  if (p.bk == 64) return launch<2, WEIGHTED, T>(x, a, out, p, smem, s, r);
-  if (p.bk == 128) return launch<4, WEIGHTED, T>(x, a, out, p, smem, s, r);
-  if (p.bk == 256) return launch<8, WEIGHTED, T>(x, a, out, p, smem, s, r);
-  if (p.bk == 512) return launch<16, WEIGHTED, T>(x, a, out, p, smem, s, r);
+  if (p.kb == 1) {  // the group layout
+    if (p.bk <= 16) return launch_group<16, WEIGHTED, T>(x, a, out, p, smem, s, r);
+    if (p.bk == 32) return launch_group<32, WEIGHTED, T>(x, a, out, p, smem, s, r);
+    if (p.bk == 64) return launch_group<64, WEIGHTED, T>(x, a, out, p, smem, s, r);
+    if (p.bk == 128) return launch_group<128, WEIGHTED, T>(x, a, out, p, smem, s, r);
+    if (p.bk == 256) return launch_group<256, WEIGHTED, T>(x, a, out, p, smem, s, r);
+    if (p.bk == 512) return launch_group<512, WEIGHTED, T>(x, a, out, p, smem, s, r);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.bk <= 32) return launch<1, WEIGHTED, T, 32>(x, a, out, p, smem, s, r);
+  if (p.bk == 64) return launch<2, WEIGHTED, T, 32>(x, a, out, p, smem, s, r);
+  if (p.bk == 128) return launch<4, WEIGHTED, T, 32>(x, a, out, p, smem, s, r);
+  if (p.bk == 256) return launch<8, WEIGHTED, T, 32>(x, a, out, p, smem, s, r);
+  if (p.bk == 512) return launch<16, WEIGHTED, T, 32>(x, a, out, p, smem, s, r);
   return (int)cudaErrorInvalidValue;
 }
 
 size_t smem_bytes(int k, int nc, int bk, int cols) {
   const size_t kb = (size_t)((k + bk - 1) / bk), k_pad = kb * bk;
+  if (kb == 1) {  // group layout: (nc, bk) slice, nc masses, the (R
+                  // LANES, 256 / LANES) value and row strips
+    const size_t strip = (size_t)group_rows(bk) * kGroupThreads;
+    return sizeof(float) * ((size_t)nc * k_pad + nc + strip) +
+           sizeof(uint16_t) * strip;
+  }
   const size_t strip = kb > kRegCombine ? (size_t)next_pow2((int)kb) : 0;
   return sizeof(uint64_t) * cols * strip +
          sizeof(float) * (k_pad * cols + (size_t)nc * k_pad +
                           2 * kb * cols + kb * (size_t)nc) +
-         (kb > 1 ? sizeof(uint16_t) * k_pad * cols : 0);
+         sizeof(uint16_t) * k_pad * cols;
 }
 
 // Checks the launch arguments and runs (report empty) or reports one
@@ -686,11 +993,12 @@ int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
              int num_iters, float c, int weighted, void* stream,
              const Report& report) {
   if (k < 1 || n < 1 || m < 1 || bk < 2 || bk > 32 * kMaxRowsPerLane ||
-      (bk & (bk - 1)) || nc < 1 || nc > n || cols < 1 || cols > kMaxCols ||
-      (cols & (cols - 1)))
+      (bk & (bk - 1)) || nc < 1 || nc > n || cols < 1 || (cols & (cols - 1)))
     return (int)cudaErrorInvalidValue;
-  const Params p{ld, m, k, n, bk, (k + bk - 1) / bk, nc, cols, ilog2(cols),
-                 num_iters, c};
+  const int kb = (k + bk - 1) / bk;
+  if (cols > (kb == 1 ? kGroupThreads / group_lanes(bk) : kMaxCols))
+    return (int)cudaErrorInvalidValue;
+  const Params p{ld, m, k, n, bk, kb, nc, cols, ilog2(cols), num_iters, c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const size_t smem = smem_bytes(k, nc, bk, cols);
@@ -711,11 +1019,13 @@ int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
 extern "C" {
 
 // Shared memory one block carves; the Python launch plan models the same
-// number (mm_aggregate.two_pass_smem_bytes): above 32 K blocks each warp's
-// strip of next_pow2(KB) (value, block) pairs for the combine, the
-// (K_pad, cols) f32 tile, the (nc, K_pad) weight slice, (2 KB, cols)
-// block stats, the (KB, nc) block masses and, with several K blocks, the
-// (K_pad, cols) uint16 row index of the sorted blocks.
+// number (mm_aggregate.two_pass_smem_bytes).  One K block (group layout):
+// the (nc, bk) weight slice, nc masses and the (R, cols) f32 values and
+// uint16 rows of the sorted columns, R = max(32, bk).
+// Several: above 32 K blocks each warp's strip of next_pow2(KB) (value,
+// block) pairs for the combine, the (K_pad, cols) f32 tile, the (nc,
+// K_pad) weight slice, (2 KB, cols) block stats, the (KB, nc) block
+// masses and the (K_pad, cols) uint16 row index of the sorted blocks.
 size_t mm_two_pass_smem_bytes(int k, int nc, int bk, int cols) {
   return smem_bytes(k, nc, bk, cols);
 }
@@ -723,8 +1033,9 @@ size_t mm_two_pass_smem_bytes(int k, int nc, int bk, int cols) {
 // x: (k, m) row-major with row stride ld, f32 (dtype 0) or bf16 (dtype 1);
 // a: (k, n) f32 normalised weight columns; out: (n, m) in x's dtype;
 // bk: the K block, a power of two <= 512 (any number of blocks); nc:
-// weight columns per chunk; cols: columns (warps) per block, 1, 2, 4 or
-// 8; c: Tukey's constant.  One launch; returns its cudaError_t.
+// weight columns per chunk; cols: columns per block, a power of two, at
+// most 8 with several K blocks and 256 / max(1, bk / 32) with one; c:
+// Tukey's constant.  One launch; returns its cudaError_t.
 int mm_two_pass_launch(const void* x, int dtype, int64_t ld, int k, int64_t m,
                        const void* a, int n, void* out, int bk, int nc,
                        int cols, int num_iters, float c, int weighted,

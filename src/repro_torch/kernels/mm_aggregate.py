@@ -13,8 +13,10 @@ Two hand-written CUDA kernels compute it (``csrc/``): the single-pass
 kernel, in three variants (``regs``: a column's K <= 32 values in one
 thread's registers; ``warp``: one warp per (column, n) pair, K <= 64;
 ``smem``: a block's whole (K, bm) tile in shared memory), and the
-two-pass K-major kernel for large cohorts, in which one warp owns one
-column, sorts its bk-row blocks and combines their statistics.  Each
+two-pass K-major kernel for large cohorts, which sorts each column's
+bk-row blocks and combines their statistics (one K block: a group of
+lanes a column, 16 or 32 rows a lane, which also does the column's
+serial work; several: one warp a column).  Each
 sits behind a wrapper here (``single_pass``, ``two_pass``) that launches
 it for a CUDA tensor, one kernel per call, and counts the launch under
 its ``KernelCall.key`` in ``launches.COUNTS``; for a CPU tensor the
@@ -39,8 +41,8 @@ nothing.
 its modeled HBM traffic and the shared memory a block carves, against
 Hopper's 227 KB (232,448 B) per block.  The path crossover
 (``auto_path``) is measured, not derived from that limit: from 65
-agents the two-pass kernel, whose blocks hold ``block_m`` <= 8 columns,
-one warp each, outruns the single pass's smem variant (which ranks a
+agents the two-pass kernel, timed when it still gave each column a
+warp, outruns the single pass's smem variant (which ranks a
 column's rows by counting, K^2 compares) 1.6-7x at N = 1 over 2^20
 columns from K = 76 to 256, except at a few agents over 64 and many
 weight columns, where the single pass stays.  Within the single pass,
@@ -79,9 +81,16 @@ SMEM_KEEPS = ((1, 68), (4, 72), (8, 80), (16, 96), (32, 112), (64, 160),
 # largest K block the two-pass path sorts at once (more K -> several
 # blocks -> the approximate median-of-medians init, as in the reference)
 _MAX_BLOCK_K2 = 512
-# the two-pass kernel: block_m columns a block, one warp each, at most 8;
-# its (K_pad, block_m) tile must fit, so large K takes fewer columns
+# the two-pass kernel with several K blocks (the warp layout): block_m
+# columns a block, one warp each, at most 8; its (K_pad, block_m) tile
+# must fit, so large K takes fewer columns
 TWO_PASS_BLOCK_MS = (8, 4, 2, 1)
+# with one K block (the group layout) a column's rows spread over a group
+# of lanes, 16 rows a lane up to bk = _TWO_PASS_GROUP_SPLIT and 32 above,
+# and a block takes any power of two of columns up to this many threads'
+# worth
+TWO_PASS_GROUP_THREADS = 256
+_TWO_PASS_GROUP_SPLIT = 128
 # the heuristic narrows the block until M gives one tile per SM (H100 SXM)
 TWO_PASS_MIN_TILES = 132
 # K blocks a warp combines in registers; above, in shared memory
@@ -200,21 +209,50 @@ def single_pass_variant(k: int, m: int, n: int = 1) -> str:
     return "smem"
 
 
+def two_pass_rows(block_k: int) -> int:
+    """Rows a lane holds in the two-pass kernel's group layout (one K
+    block): 16 up to a K block of 128 rows, 32 above (C: group_rows)."""
+    return 16 if int(block_k) <= _TWO_PASS_GROUP_SPLIT else 32
+
+
+def two_pass_lanes(block_k: int) -> int:
+    """Lanes a column holds in the group layout: bk / rows a lane, at
+    least one (C: group_lanes)."""
+    return max(1, int(block_k) // two_pass_rows(block_k))
+
+
+def two_pass_block_ms(k: int, block_k: int) -> Tuple[int, ...]:
+    """The blocks of columns the two-pass kernel takes for K at this K
+    block, widest first: ``TWO_PASS_BLOCK_MS`` with several K blocks (one
+    warp a column); with one, every power of two up to
+    ``TWO_PASS_GROUP_THREADS`` / lanes (a group of lanes a column)."""
+    if -(-int(k) // int(block_k)) > 1:
+        return TWO_PASS_BLOCK_MS
+    widest = TWO_PASS_GROUP_THREADS // two_pass_lanes(block_k)
+    return tuple(widest >> i for i in range(widest.bit_length()))
+
+
 def two_pass_smem_bytes(k: int, n_chunk: int, block_k: int,
                         block_m: int) -> int:
     """Shared memory one block of the two-pass kernel carves (C:
-    ``mm_two_pass_smem_bytes``): above 32 K blocks each warp's strip of
-    next_pow2(KB) 8-byte (value, block) pairs for the combine; the
-    (K_pad, bm) f32 tile, the (n_chunk, K_pad) weight slice, (2 KB, bm)
-    block stats and (KB, n_chunk) block masses; and, with several K
-    blocks, the (K_pad, bm) uint16 row index of the sorted blocks."""
+    ``mm_two_pass_smem_bytes``).  One K block: the (n_chunk, bk) weight
+    slice, n_chunk masses and the sorted columns' f32 values and uint16
+    rows in strips laid out for the widest block, rows a lane x 256
+    entries each, whatever ``block_m``.  Several: above 32 K
+    blocks each warp's strip of next_pow2(KB) 8-byte (value, block) pairs
+    for the combine; the (K_pad, bm) f32 tile, the (n_chunk, K_pad)
+    weight slice, (2 KB, bm) block stats, (KB, n_chunk) block masses and
+    the (K_pad, bm) uint16 row index of the sorted blocks."""
     kb = -(-k // block_k)
     k_pad = kb * block_k
+    if kb == 1:
+        strip = two_pass_rows(block_k) * TWO_PASS_GROUP_THREADS
+        return 4 * (n_chunk * k_pad + n_chunk + strip) + 2 * strip
     strip = next_pow2(kb) if kb > _TWO_PASS_REG_COMBINE else 0
     return (8 * block_m * strip
             + 4 * (k_pad * block_m + n_chunk * k_pad + 2 * kb * block_m
                    + kb * n_chunk)
-            + (2 * k_pad * block_m if kb > 1 else 0))
+            + 2 * k_pad * block_m)
 
 
 def two_pass_n_chunk(k: int, n: int, block_k: int, block_m: int) -> int:
@@ -276,6 +314,7 @@ def launch_plan(k: int, m: int, n: int = 1, *,
     dtype = _as_dtype(dtype)
     if variant is not None and path is None:
         path = "single"
+    bm_given, tuned_bk = block_m is not None, None
     if block_m is None or block_k is None or path is None:
         from repro_torch.kernels import tuning  # deferred: tuning sizes plans
         choice = tuning.get_choice(k, m, n=n, dtype=dtype)
@@ -287,11 +326,26 @@ def launch_plan(k: int, m: int, n: int = 1, *,
                 k, m, n, dtype, path=path))
         if block_m is None:
             block_m = choice.block_m
+        tuned_bk = choice.block_k
         if block_k is None and (choice.path or "single") == \
                 (path or auto_path(k, n)):
             block_k = choice.block_k
     if path is None:
         path = auto_path(k, n)
+    if path == "two_pass":
+        bk = two_pass_block_k(k) if block_k is None else int(block_k)
+        if bk < 2 or bk & (bk - 1):
+            raise ValueError(
+                f"two-pass block_k must be a power of two >= 2, got {bk}")
+        if not bm_given and bk != (tuned_bk or two_pass_block_k(k)):
+            # the tile was chosen for another K block: this one's heuristic
+            from repro_torch.kernels import tuning
+            block_m = tuning.heuristic_blocks(k, m, n, dtype, path=path,
+                                              block_k=bk)[0]
+        if block_m not in two_pass_block_ms(k, bk):
+            raise ValueError(f"the two-pass kernel takes block_m in "
+                             f"{two_pass_block_ms(k, bk)} at (K, block_k) = "
+                             f"({k}, {bk}), got {block_m}")
     if block_m < 1:
         raise ValueError(f"block_m must be positive, got {block_m}")
 
@@ -302,13 +356,6 @@ def launch_plan(k: int, m: int, n: int = 1, *,
     output_bytes = n * m * itemsize
 
     if path == "two_pass":
-        if block_m not in TWO_PASS_BLOCK_MS:
-            raise ValueError(f"the two-pass kernel takes block_m in "
-                             f"{TWO_PASS_BLOCK_MS}, got {block_m}")
-        bk = two_pass_block_k(k) if block_k is None else int(block_k)
-        if bk < 2 or bk & (bk - 1):
-            raise ValueError(
-                f"two-pass block_k must be a power of two >= 2, got {bk}")
         kb = -(-k // bk)
         nc = two_pass_n_chunk(k, n, bk, block_m) if n_chunk is None \
             else max(1, min(int(n_chunk), n))
@@ -458,10 +505,18 @@ def _realized_call(plan: LaunchPlan, k: int, m: int, dtype: torch.dtype,
     tname = _TYPE_NAMES[dtype]
     tiles = -(-m // plan.block_m)
     if plan.path == "two_pass":
-        rpl = max(1, plan.block_k // 32)
+        # <rows a lane, weighted, dtype, lanes a column>: one K block, the
+        # group layout; several, one warp a column
+        if plan.num_k_blocks == 1:
+            rpl, lanes = two_pass_rows(plan.block_k), \
+                two_pass_lanes(plan.block_k)
+            threads = max(32, plan.block_m * lanes)
+        else:
+            rpl, lanes = max(1, plan.block_k // 32), 32
+            threads = 32 * plan.block_m
         inst = f"mm_two_pass<{rpl}, {'true' if weighted else 'false'}, " \
-               f"{tname}>"
-        threads, units, grid_stride = 32 * plan.block_m, tiles, True
+               f"{tname}, {lanes}>"
+        units, grid_stride = tiles, True
         smem = two_pass_smem_bytes(k, plan.n_chunk, plan.block_k,
                                    plan.block_m)
         # its (K_pad, bm) tile arrives as num_k_blocks (bk, bm) loads

@@ -9,10 +9,11 @@ right choice depends on the workload (K, M, N, dtype) and the card.
       ``TuneChoice`` for the workload on this device when one exists,
       else ``heuristic_blocks``: on the single pass the widest tile, in
       steps of one warp of columns (32), whose shared memory fits a
-      Hopper block; on the two-pass kernel the widest block of 8, 4, 2
-      or 1 columns (one warp each) that fits and still gives every SM a
-      tile.  ``mm_aggregate.launch_plan`` (and hence the engine)
-      consults it.
+      Hopper block; on the two-pass kernel the widest block its layout
+      takes at the K block (``mm_aggregate.two_pass_block_ms``: with one
+      K block up to 256 / lanes columns, with several 8, 4, 2 or 1) that
+      fits and still gives every SM a tile.  ``mm_aggregate.launch_plan``
+      (and hence the engine) consults it.
   autotune(k, m, n, dtype)    -- times ``candidate_choices`` on
       synthetic data through the real launcher, caches the fastest
       (with its path, so the single<->two-pass crossover is measured for
@@ -152,14 +153,15 @@ def save_cache(path: Optional[str] = None) -> Optional[str]:
 
 
 def heuristic_blocks(k: int, m: int, n: int = 1, dtype=torch.float32,
-                     path: Optional[str] = None) -> BlockChoice:
+                     path: Optional[str] = None,
+                     block_k: Optional[int] = None) -> BlockChoice:
     """The tile of ``path`` (None: the one ``auto_path`` takes).  Single
     pass: the widest (a multiple of 32 columns, at most 256 and at most
-    the problem's width) whose shared memory fits a block.  Two-pass: the
-    widest of ``TWO_PASS_BLOCK_MS`` whose block fits and whose column
-    tiles number at least ``TWO_PASS_MIN_TILES`` (one per SM), else the
-    narrowest that fits (1 where none does: the launch then raises on
-    the card)."""
+    the problem's width) whose shared memory fits a block.  Two-pass, at
+    ``block_k`` (None: the default K block): the widest of
+    ``two_pass_block_ms`` whose block fits and whose column tiles number
+    at least ``TWO_PASS_MIN_TILES`` (one per SM), else the narrowest that
+    fits (1 where none does: the launch then raises on the card)."""
     del dtype  # the kernels hold f32 tiles whatever the input dtype
     k, n, m = int(k), max(int(n), 1), int(m)
     cap = min(_mm._MAX_BLOCK_M, max(WARP, -(-m // WARP) * WARP))
@@ -172,8 +174,8 @@ def heuristic_blocks(k: int, m: int, n: int = 1, dtype=torch.float32,
 
     if (path or _mm.auto_path(k, n)) == "single":
         return widest(lambda bm: _mm.single_pass_smem_bytes(k, n, bm)), None
-    bk = _mm.two_pass_block_k(k)
-    fitting = [bm for bm in _mm.TWO_PASS_BLOCK_MS
+    bk = _mm.two_pass_block_k(k) if block_k is None else int(block_k)
+    fitting = [bm for bm in _mm.two_pass_block_ms(k, bk)
                if _mm.two_pass_smem_bytes(
                    k, _mm.two_pass_n_chunk(k, n, bk, bm), bk, bm)
                <= _mm.SMEM_BUDGET_BYTES]
@@ -185,12 +187,15 @@ def heuristic_blocks(k: int, m: int, n: int = 1, dtype=torch.float32,
 
 def _kernel_takes(k: int, n: int, choice: TuneChoice) -> bool:
     """Whether the kernel of the choice's path takes its tile: a two-pass
-    entry cached for another kernel (a bm of 32 or more, a K block over
-    512 rows) would raise at launch, so it is not used."""
+    entry cached for another kernel (a block of columns its layout does
+    not take at the K block, a K block over 512 rows) would raise at
+    launch, so it is not used."""
     if (choice.path or _mm.auto_path(k, n)) != "two_pass":
         return True
-    return choice.block_m in _mm.TWO_PASS_BLOCK_MS and (
-        choice.block_k is None or choice.block_k <= _mm._MAX_BLOCK_K2)
+    bk = _mm.two_pass_block_k(k) if choice.block_k is None \
+        else choice.block_k
+    return bk <= _mm._MAX_BLOCK_K2 and \
+        choice.block_m in _mm.two_pass_block_ms(k, bk)
 
 
 def get_choice(k: int, m: int, n: int = 1, dtype=torch.float32,
@@ -301,22 +306,23 @@ def _fits(k: int, m: int, n: int, dtype, choice: TuneChoice) -> bool:
 def candidate_choices(k: int, m: int, n: int = 1,
                       dtype=torch.float32) -> List[TuneChoice]:
     """The default sweep: every single-pass tile of ``candidate_blocks``
-    and, for K >= 65, the two-pass kernel at the heuristic's block of
-    columns and the next narrower one, each with the default K block and
-    with half of it where that half has at least 16 rows.  A candidate
+    and, for K >= 65, the two-pass kernel at the default K block and at
+    half of it where that half has at least 16 rows, each with the
+    heuristic's block of columns for that K block and the next narrower
+    one.  A candidate
     whose block would carve more shared memory than a Hopper block may
     use cannot launch, so it is dropped before anything is timed; the
     heuristic's own choice always stays, so the list is never empty."""
     out = [TuneChoice(bm, bk, "single")
            for bm, bk in candidate_blocks(k, m, n, dtype)]
     if int(k) >= _mm._TWO_PASS_MIN_K:
-        bm0 = heuristic_blocks(k, m, n, dtype, path="two_pass")[0]
         bk0 = _mm.two_pass_block_k(k)
-        i = _mm.TWO_PASS_BLOCK_MS.index(bm0)
-        for bm in _mm.TWO_PASS_BLOCK_MS[i:i + 2]:
-            out.append(TuneChoice(bm, bk0, "two_pass"))
-            if bk0 // 2 >= 16:
-                out.append(TuneChoice(bm, bk0 // 2, "two_pass"))
+        for bk in (bk0, bk0 // 2) if bk0 // 2 >= 16 else (bk0,):
+            bms = _mm.two_pass_block_ms(k, bk)
+            bm0 = heuristic_blocks(k, m, n, dtype, path="two_pass",
+                                   block_k=bk)[0]
+            i = bms.index(bm0)
+            out.extend(TuneChoice(bm, bk, "two_pass") for bm in bms[i:i + 2])
     out = [c for c in out if _fits(k, m, n, dtype, c)]
     first = heuristic_choice(k, m, n, dtype)
     return out if first in out else [first] + out

@@ -356,10 +356,17 @@ def test_kernel_call_two_pass(k, bk, weighted):
     call = mk.kernel_call(plan, k=k, m=777, dtype=torch.bfloat16,
                           weighted=weighted)
     assert call.args == (plan.block_k, plan.n_chunk, plan.block_m)
+    if plan.num_k_blocks == 1:   # a group of lanes a column
+        rows, lanes = mk.two_pass_rows(plan.block_k), \
+            mk.two_pass_lanes(plan.block_k)
+        threads = max(32, plan.block_m * lanes)
+    else:                        # a warp a column
+        rows, lanes = max(1, plan.block_k // 32), 32
+        threads = 32 * plan.block_m
     assert call.instantiation == (
-        f"mm_two_pass<{max(1, plan.block_k // 32)}, "
-        f"{'true' if weighted else 'false'}, bf16>")
-    assert call.threads == 32 * plan.block_m
+        f"mm_two_pass<{rows}, {'true' if weighted else 'false'}, bf16, "
+        f"{lanes}>")
+    assert call.threads == threads
     assert call.loads == plan.input_block_fetches
     assert call.operands[0] == mk.Operand("x", (k, 777), "bfloat16")
     assert call.outputs == (mk.Operand("out", (2, 777), "bfloat16"),)

@@ -33,7 +33,7 @@ def test_every_auto_plan_fits_shared_memory(m):
         if plan.path == "single":
             assert plan.block_m % 32 == 0
         else:
-            assert plan.block_m in TK.TWO_PASS_BLOCK_MS
+            assert plan.block_m in TK.two_pass_block_ms(k, plan.block_k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -93,7 +93,7 @@ def test_every_candidate_passes_the_plan_and_the_shared_memory(k, m, n):
             assert TK.variant_smem_bytes(plan.variant, k, n, c.block_m) \
                 == plan.smem_bytes
         else:
-            assert c.block_m in TK.TWO_PASS_BLOCK_MS
+            assert c.block_m in TK.two_pass_block_ms(k, c.block_k)
             assert c.block_k <= 512 and c.block_k >= 16
     # two-pass candidates only from the reference's crossover K on
     paths = {c.path for c in cands}
@@ -101,16 +101,19 @@ def test_every_candidate_passes_the_plan_and_the_shared_memory(k, m, n):
 
 
 def test_two_pass_candidates_follow_the_heuristic_block():
+    """At each K block, the heuristic's block of columns and the next
+    narrower: one K block of 128 rows takes up to 32 columns (8 lanes
+    each), two blocks of 64 one warp a column, up to 8."""
     cands = tuning.candidate_choices(128, 15_730_944, 1)
     two = [(c.block_m, c.block_k) for c in cands if c.path == "two_pass"]
-    assert two == [(8, 128), (8, 64), (4, 128), (4, 64)]
+    assert two == [(32, 128), (16, 128), (8, 64), (4, 64)]
     assert [c.block_m for c in cands if c.path == "single"] == \
         [32, 64, 128, 256]
     # K = 512: the single-pass tile fits only up to 64 columns
     cands = tuning.candidate_choices(512, 15_730_944, 1)
     assert [c.block_m for c in cands if c.path == "single"] == [32, 64]
     assert tuning.heuristic_choice(512, 15_730_944, 1) == \
-        tuning.TuneChoice(8, 512, "two_pass") == cands[2]
+        tuning.TuneChoice(16, 512, "two_pass") == cands[2]
 
 
 def test_cache_state_changes_with_a_winner():

@@ -78,17 +78,22 @@ def test_shapes_the_first_kernel_could_not_fit_now_fit(k, n):
     for m in (1031, 4099, 15_730_944):
         plan = TK.launch_plan(k, m, n)
         assert plan.path == "two_pass" and plan.smem_bytes <= BUDGET
-        assert plan.block_m in TK.TWO_PASS_BLOCK_MS
+        assert plan.block_m in TK.two_pass_block_ms(k, plan.block_k)
         assert plan.k_pad == plan.num_k_blocks * plan.block_k >= k
         assert 1 <= plan.n_chunk <= n
         assert plan.input_bytes == k * m * 4      # x read once
 
 
 def test_shared_memory_model_counts_every_buffer():
-    """The model (and the C function it mirrors) at one K block, several,
-    and past 32 K blocks, where each warp sorts its combine in a strip."""
+    """The model (and the C function it mirrors) at one K block (the
+    slice, masses and the sorted columns' value and row strips, laid out
+    for the widest block: rows a lane x 256 entries, whatever block_m),
+    several, and past 32 K blocks, where each warp sorts its combine in a
+    strip."""
     assert TK.two_pass_smem_bytes(512, 1, 512, 8) == \
-        4 * (512 * 8 + 512 + 2 * 8 + 1)
+        4 * (512 + 1 + 32 * 256) + 2 * 32 * 256
+    assert TK.two_pass_smem_bytes(12, 3, 16, 4) == \
+        4 * (3 * 16 + 3 + 16 * 256) + 2 * 16 * 256
     assert TK.two_pass_smem_bytes(8192, 1, 512, 4) == \
         4 * (8192 * 4 + 8192 + 2 * 16 * 4 + 16) + 2 * 8192 * 4
     assert TK.two_pass_smem_bytes(2048, 3, 32, 8) == \

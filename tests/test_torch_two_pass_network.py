@@ -1,18 +1,26 @@
 """The two-pass kernel's arithmetic, transcribed to numpy f32 and held to
 the plain version (CPU).
 
-``csrc/mm_two_pass.cu`` gives one warp one column: lane l holds the rows
-q * 32 + l of each K block (q < RPL = bk / 32), a warp bitonic network
-sorts them into positions e = l * RPL + q, the weighted crossing sums
-weights position by position, the MAD merges |x - med| with one bitonic
-merge, the combine sorts (value, block) pairs (one a lane for KB <= 32,
-else in a shared-memory strip), and IRLS runs in reciprocal form with
-each lane's partial sums reduced by a butterfly.  No CUDA compiler runs
-here, so the networks below follow the kernel's ``warp_flip``,
-``warp_stage`` and ``combine`` stage for stage (partners, in-lane and
-cross-lane, directions): these tests check its schedule as well as the
-rounding of its arithmetic, within the tolerance the card's parity uses,
-1e-5 x max(1, |x|_inf).
+``csrc/mm_two_pass.cu`` has two layouts.  With several K blocks one warp
+owns one column: lane l holds the rows q * 32 + l of each K block (q <
+RPL = bk / 32), a warp bitonic network sorts them into positions e = l *
+RPL + q, the weighted crossing sums weights position by position, the
+MAD merges |x - med| with one bitonic merge, the combine sorts (value,
+block) pairs (one a lane for KB <= 32, else in a shared-memory strip),
+and IRLS runs in reciprocal form with each lane's partial sums reduced
+by a butterfly.  With one K block a group of L lanes owns a column, R =
+16 rows a lane up to bk = 256 and 32 above (L = max(1, bk / R)): lane li
+holds rows q * L + li (q < R), the group's network sorts them into
+positions e = li * R + q, the group sums the
+weights in sorted order lane after lane (the half mass), then each lane
+again from its carry-in to find the crossing, selects the MAD from the
+two sorted runs of |x - med| by a binary search, and IRLS sums each
+lane's R rows (weighted: the sorted positions; unweighted: the rows as
+loaded) before log2(L) butterfly steps.  No CUDA compiler runs here, so the networks below follow the
+kernel's ``warp_flip``, ``warp_stage`` and ``combine`` stage for stage
+(partners, in-lane and cross-lane, directions): these tests check its
+schedule as well as the rounding of its arithmetic, within the tolerance
+the card's parity uses, 1e-5 x max(1, |x|_inf).
 """
 
 import numpy as np
@@ -31,11 +39,12 @@ def ilog2(p):
 
 
 def warp_stage(v, t):
-    """Ascending stage at distance 2^t; v: (M, 32, RPL), element
-    e = lane * RPL + q (the kernel's layout)."""
+    """Ascending stage at distance 2^t; v: (M, lanes, RPL), element
+    e = lane * RPL + q (the kernel's layout; a warp, or a group of lanes
+    of the group layout)."""
     rpl = v.shape[2]
     logr = ilog2(rpl)
-    lane = np.arange(32)
+    lane = np.arange(v.shape[1])
     v = v.copy()
     if t >= logr:
         lm = 1 << (t - logr)
@@ -55,7 +64,7 @@ def warp_flip(v, s):
     """Merge level s's first stage: e against e ^ (2^s - 1)."""
     rpl = v.shape[2]
     logr = ilog2(rpl)
-    lane = np.arange(32)
+    lane = np.arange(v.shape[1])
     v = v.copy()
     if s <= logr:
         for i in range(rpl):
@@ -72,7 +81,7 @@ def warp_flip(v, s):
 
 
 def warp_sort(v):
-    log = ilog2(v.shape[2]) + 5
+    log = ilog2(v.shape[2]) + ilog2(v.shape[1])
     for s in range(1, log + 1):
         v = warp_flip(v, s)
         for t in range(s - 2, -1, -1):
@@ -276,6 +285,130 @@ def warp_two_pass(x, a, *, block_k, weighted, num_iters=10,
     return out
 
 
+def mad_select(xs, med):
+    """The kernel's MAD by selection: xs (M, k) sorted, med (M,).  The
+    split s (values <= med) by binary search, then the binary search for
+    how many of the r + 1 smallest |x - med| the falling run A gives."""
+    m, k = xs.shape
+    cols = np.arange(m)
+
+    def xv(e):
+        return xs[cols, np.clip(e, 0, k - 1)]
+
+    lo, hi = np.zeros(m, np.int64), np.full(m, k, np.int64)
+    while (lo < hi).any():
+        act, mid = lo < hi, (lo + hi) >> 1
+        le = xv(mid) <= med
+        lo, hi = np.where(act & le, mid + 1, lo), np.where(act & ~le, mid, hi)
+    s, r = lo, (k - 1) // 2
+    lo, hi = np.maximum(0, r + 1 - (k - s)), np.minimum(r + 1, s)
+    while (lo < hi).any():
+        act, i = lo < hi, (lo + hi) >> 1
+        ge = np.abs(xv(s - 1 - i) - med) >= np.abs(xv(s + r - i) - med)
+        lo, hi = np.where(act & ~ge, i + 1, lo), np.where(act & ge, i, hi)
+    i, j = lo, r + 1 - lo
+    inf = F32(np.inf)
+    d_lo = np.maximum(np.where(i > 0, np.abs(xv(s - i) - med), -inf),
+                      np.where(j > 0, np.abs(xv(s + j - 1) - med), -inf))
+    if k % 2:
+        return F32(0.5) * (d_lo + d_lo)
+    d_hi = np.minimum(np.where(i < s, np.abs(xv(s - 1 - i) - med), inf),
+                      np.where(j < k - s, np.abs(xv(s + j) - med), inf))
+    return (F32(0.5) * (d_lo + d_hi)).astype(F32)
+
+
+def group_two_pass(x, a, *, block_k, weighted, num_iters=10,
+                   c=mestimators.TUKEY_C95):
+    """The kernel's group layout (one K block, k <= block_k) for x (K, M)
+    and normalized a (K, N)."""
+    k, m = x.shape
+    n = a.shape[1]
+    rows, lanes = TK.two_pass_rows(block_k), TK.two_pass_lanes(block_k)
+    li = np.arange(lanes)
+    slot = np.arange(rows)[None, :] * lanes + li[:, None]    # (L, R) rows
+    valid = slot < k
+    v = np.where(valid[None], np.moveaxis(x[np.where(valid, slot, 0)], 2, 0),
+                 F32(0))                                       # (M, L, R)
+    pos_valid = (li[:, None] * rows + np.arange(rows)[None]) < k
+    cols = np.arange(m)
+    if weighted:
+        keys = np.where(valid[None], (sort_key(v).astype(np.uint64)
+                                      << np.uint64(32))
+                        | slot.astype(np.uint64)[None], ~np.uint64(0))
+        keys = warp_sort(keys)
+        xs = np.where(pos_valid[None], key_value(keys >> np.uint64(32)),
+                      F32(0))
+        rw = np.where(pos_valid[None],
+                      (keys & np.uint64(0xFFFFFFFF)).astype(np.int64), 0)
+        rw_sorted = positions(rw)[:, :k]
+    else:
+        keys = warp_sort(np.where(valid[None], sort_key(v),
+                                  np.uint32(0xFFFFFFFF)))
+        xs = np.where(pos_valid[None], key_value(keys), F32(0))
+    xs_sorted = positions(xs)[:, :k]
+    ap = np.zeros((max(block_k, k), n), F32)
+    ap[:k] = a
+    out = np.zeros((n, m), F32)
+    for nn in range(n):
+        wcol = ap[:, nn]
+        mass = F32(0)                     # stage_weights: bk rows in order
+        for r in range(block_k):
+            mass = F32(mass + wcol[r])
+        if weighted:                      # position by position, twice
+            ws = wcol[rw_sorted]
+            tot = np.zeros(m, F32)
+            for e in range(k):
+                tot = (tot + ws[:, e]).astype(F32)
+            half = F32(0.5) * tot
+            cw, hit = np.zeros(m, F32), np.full(m, -1)
+            for e in range(k):
+                prev = cw
+                cw = (cw + ws[:, e]).astype(F32)
+                hit = np.where((cw >= half) & (prev < half), e, hit)
+            med = np.where(hit >= 0, xs_sorted[cols, np.maximum(hit, 0)],
+                           F32(0))
+            xv = xs
+            wv = np.where(pos_valid[None], wcol[rw], F32(0))
+        else:
+            med = middle(xs_sorted, k)
+            xv = v
+            wv = np.where(valid[None], wcol[np.where(valid, slot, 0)][None],
+                          F32(0))
+        mad = mad_select(xs_sorted, med.astype(F32))
+        crosses = mass >= F32(0.5) * mass and F32(0) < F32(0.5) * mass
+        mu = (med if crosses else np.zeros(m)).astype(F32)
+        mad = (mad if crosses else np.zeros(m)).astype(F32)
+        scale = np.maximum(F32(TK._MAD_CONSISTENCY) * mad, F32(1e-12))
+        inv = (F32(1) / (F32(c) * scale)).astype(F32)
+        for _ in range(num_iters):
+            num = np.zeros((m, lanes), F32)
+            den = np.zeros((m, lanes), F32)
+            for q in range(rows):         # each lane's rows, in order
+                y = ((xv[:, :, q] - mu[:, None]) * inv[:, None]).astype(F32)
+                u = np.clip(fma(-y, y, F32(1)), 0, 1)
+                w = (wv[:, :, q] * (u * u)).astype(F32)
+                num = fma(w, xv[:, :, q], num)
+                den = (den + w).astype(F32)
+            off = lanes // 2
+            while off:                    # the group's butterfly
+                num = (num + num[:, li ^ off]).astype(F32)
+                den = (den + den[:, li ^ off]).astype(F32)
+                off //= 2
+            num, den = num[:, 0], den[:, 0]
+            safe = den > F32(1e-12)
+            mu = np.where(safe, num / np.where(safe, den, F32(1)),
+                          mu).astype(F32)
+        out[nn] = mu
+    return out
+
+
+def kernel_two_pass(x, a, *, block_k, weighted):
+    """The layout the kernel takes: the group layout for one K block, one
+    warp a column for several."""
+    run = group_two_pass if x.shape[0] <= block_k else warp_two_pass
+    return run(x, a, block_k=block_k, weighted=weighted)
+
+
 def make(k, m, n, kind, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(k, m)).astype(F32)
@@ -360,7 +493,7 @@ def test_kernel_arithmetic_stays_within_parity_of_the_plain_version(
     x, a = make(k, 37, n, kind, seed=k + block_k + len(kind))
     tol = 1e-5 * max(1.0, float(np.abs(x).max()))
     for weighted, aw in ((True, a), (False, np.full((k, 1), 1.0 / k, F32))):
-        got = warp_two_pass(x, aw, block_k=block_k, weighted=weighted)
+        got = kernel_two_pass(x, aw, block_k=block_k, weighted=weighted)
         want = plain(x, aw, block_k, weighted)
         assert np.isfinite(got).all()
         assert float(np.abs(got - want).max()) <= tol, (weighted, kind)
@@ -375,9 +508,108 @@ def test_massless_middle_block_leaves_the_combine():
     assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(x).max())
 
 
+@pytest.mark.parametrize("bk", [16, 32, 64, 128, 256, 512])
+def test_group_network_sorts_like_the_kernel(bk):
+    """The group layout's network at each K block's rows a lane and lanes
+    a column, pairs with ties in the key broken by the row, as the
+    weighted columns sort."""
+    rows, lanes = TK.two_pass_rows(bk), TK.two_pass_lanes(bk)
+    rng = np.random.default_rng(bk)
+    keys = rng.integers(0, 20, size=(5, lanes * rows)).astype(np.uint64)
+    pairs = (keys << np.uint64(32)) | np.arange(lanes * rows,
+                                                dtype=np.uint64)
+    got = positions(warp_sort(pairs.reshape(5, lanes, rows)))
+    np.testing.assert_array_equal(got, np.sort(pairs, axis=1))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 64, 65, 128, 301, 512])
+def test_mad_selection_matches_the_sorted_deviations(k):
+    """The selection gives the rank midpoint of the sorted |x - med|, bit
+    for bit: ties, a median inside, at either end and outside the
+    column, and every value equal."""
+    rng = np.random.default_rng(k)
+    xs = np.sort((np.round(rng.normal(size=(40, k)) * 3) / 3).astype(F32), 1)
+    xs[-3:] = F32(2.5)
+    med = np.concatenate([
+        xs[:10, (k - 1) // 2], xs[10:20, 0], xs[20:30, -1],
+        (xs[30:37, 0] - F32(5)), xs[37:, 0]]).astype(F32)
+    ds = np.sort(np.abs(xs - med[:, None]), 1)
+    want = F32(0.5) * (ds[:, (k - 1) // 2] + ds[:, k // 2])
+    np.testing.assert_array_equal(mad_select(xs, med), want)
+
+
+def group_inputs(k, m, n, kind, seed):
+    """Values and normalized weights for the group layout's cases: ties
+    (multiples of 0.5, random weights), zero_weights (a third of the rows
+    weigh 0) and exact_half (64 rows of weight 1/64, the rest 0, so the
+    sorted-order mass reaches exactly one half at a row)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(k, m)).astype(F32)
+    if kind == "ties":
+        x = (np.round(x * 2.0) / 2.0 + 0.0).astype(F32)
+    else:
+        x[-max(1, k // 5):] += F32(1000.0)
+    a = rng.uniform(0.1, 1.0, size=(k, n)).astype(F32)
+    if kind == "zero_weights":
+        a[rng.uniform(size=(k, n)) < 1 / 3] = 0.0
+    elif kind == "exact_half":
+        a[:] = 0.0
+        for j in range(n):
+            a[rng.permutation(k)[:64], j] = 1.0
+    return x, (a / a.sum(0)).astype(F32)
+
+
+@pytest.mark.parametrize("kind", ["ties", "zero_weights", "exact_half"])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("k", [65, 100, 128, 301, 512])
+def test_group_layout_stays_within_parity_of_the_plain_version(k, n, kind):
+    """One K block of next_pow2(K) rows (8 or 16 lanes a column):
+    the sequential crossing over the sorted order (at exactly half the
+    mass in exact_half), the MAD by selection and IRLS in the group's
+    partial-sum order, weighted and unweighted (one uniform column, as
+    the wrappers launch it)."""
+    bk = TK.next_pow2(k)
+    x, a = group_inputs(k, 23, n, kind, seed=k * 10 + n)
+    tol = 1e-5 * max(1.0, float(np.abs(x).max()))
+    for weighted, aw in ((True, a), (False, np.full((k, 1), 1.0 / k, F32))):
+        got = group_two_pass(x, aw, block_k=bk, weighted=weighted)
+        want = plain(x, aw, bk, weighted)
+        assert np.isfinite(got).all()
+        assert float(np.abs(got - want).max()) <= tol, (weighted, kind)
+
+
 def tile_at(r, c, cols):
     """The kernel's swizzled tile address of (row r, column c)."""
     return r * cols + ((c + (r >> (5 - ilog2(cols)))) & (cols - 1))
+
+
+def strip_at(e, c, rows, lanes):
+    """The group layout's strip slot of sorted position e, column c."""
+    w = 256 // lanes
+    return e * w + ((c + (e // rows) * (32 // lanes)) & (w - 1))
+
+
+@pytest.mark.parametrize("bk", [16, 32, 64, 128, 256, 512])
+def test_group_strips_are_a_bijection_without_bank_conflicts(bk):
+    """Every (position, column) of the widest block has its own slot; a
+    warp storing the q-th position of each lane's run (its 32 / lanes
+    columns), and 32 neighbouring columns read at one position, hit 32
+    distinct banks (at most 2 ways where a row has 16 entries, bk 512)."""
+    rows, lanes = TK.two_pass_rows(bk), TK.two_pass_lanes(bk)
+    w, g = 256 // lanes, 32 // lanes
+    e, c = np.meshgrid(np.arange(rows * lanes), np.arange(w), indexing="ij")
+    slots = strip_at(e, c, rows, lanes)
+    assert sorted(slots.ravel().tolist()) == list(range(rows * lanes * w))
+    ways = 1 if w >= 32 else 32 // w
+    lane = np.arange(32)
+    for warp in range(256 // 32):
+        col, li = warp * g + lane // lanes, lane % lanes
+        for q in range(rows):
+            banks = strip_at(li * rows + q, col, rows, lanes) % 32
+            assert np.bincount(banks).max() <= ways
+    for pos in range(rows * lanes):
+        banks = strip_at(pos, np.arange(min(32, w)), rows, lanes) % 32
+        assert np.bincount(banks).max() == 1
 
 
 @pytest.mark.parametrize("cols", TK.TWO_PASS_BLOCK_MS)

@@ -1,6 +1,8 @@
 """The two-pass kernel's launch plan and tile choice (CPU): the block of
-1, 2, 4 or 8 columns the heuristic picks, what the plan refuses, and
-tuning-cache entries written for another kernel."""
+columns the heuristic picks (one K block: a power of two up to 256 /
+lanes, a group of lanes a column; several: 1, 2, 4 or 8, a warp a
+column), what the plan refuses, and tuning-cache entries written for
+another kernel."""
 
 import json
 
@@ -14,7 +16,7 @@ BUDGET = 232_448
 
 
 @pytest.mark.parametrize("k,m,n,block_m", [
-    (512, 15_730_944, 1, 8),    # the layer-wide cohort: 8 columns a block
+    (512, 15_730_944, 1, 16),   # the layer-wide cohort: 16 lanes a column
     (512, 1056, 1, 8),          # 132 tiles of 8: one per SM
     (512, 1048, 1, 4),          # 131 tiles of 8: narrower blocks fill it
     (512, 300, 1, 2),
@@ -65,10 +67,53 @@ def test_auto_two_pass_sorts_one_k_block_up_to_512_agents(n):
         assert plan.num_k_blocks == -(-k // 512)
 
 
-@pytest.mark.parametrize("block_m", [0, 3, 16, 32, 64])
-def test_two_pass_block_m_must_be_a_block_of_warps(block_m):
+@pytest.mark.parametrize("k,block_k,block_m", [
+    (512, None, 0), (512, None, 3), (512, None, 32), (128, None, 128),
+    (128, None, 48), (1024, 512, 16), (2048, 32, 64)])
+def test_two_pass_block_m_must_be_a_block_of_warps(k, block_k, block_m):
+    """One K block takes a power of two of columns up to 256 / lanes (16
+    at bk 512, 32 at 128); several K blocks, a warp a column, at most
+    8."""
     with pytest.raises(ValueError, match="block_m"):
-        TK.launch_plan(512, 1000, 1, path="two_pass", block_m=block_m)
+        TK.launch_plan(k, 1000, 1, path="two_pass", block_k=block_k,
+                       block_m=block_m)
+
+
+@pytest.mark.parametrize("k,m,block_m", [
+    (128, 15_730_944, 32),      # the serve cohort's layer: 256 threads
+    (128, 4224, 32),            # 132 tiles of 32
+    (128, 4192, 16),            # 131 of 32: narrower blocks fill the card
+    (128, 256, 1),              # the large-cohort sweep's M
+    (69, 2 ** 20, 32), (100, 65_536, 32), (40, 2 ** 20, 64),
+    (256, 65_536, 32), (256, 8192, 32), (256, 4096, 16),
+    (301, 65_536, 16), (512, 4096, 16), (512, 2112, 16), (512, 2096, 8)])
+def test_one_k_block_takes_the_widest_group_block_that_fills_the_card(
+        k, m, block_m):
+    """One K block: every power of two up to 256 / lanes columns a block
+    (16 rows a lane up to bk = 128, 32 above), the widest with one tile
+    per SM, from bm 1 at M = 256 to the widest block at 15.7 M columns."""
+    plan = TK.launch_plan(k, m, 1, path="two_pass")
+    assert plan.num_k_blocks == 1 and plan.block_m == block_m
+    bk = plan.block_k
+    rows, lanes = TK.two_pass_rows(bk), TK.two_pass_lanes(bk)
+    assert rows * lanes == max(bk, rows) and rows == (16 if bk <= 128 else 32)
+    assert TK.two_pass_block_ms(k, bk)[0] == 256 // lanes
+    assert -(-m // block_m) >= TK.TWO_PASS_MIN_TILES or block_m == 1
+    call = TK.kernel_call(plan, k=k, m=m)
+    assert call.instantiation == f"mm_two_pass<{rows}, true, float, {lanes}>"
+    assert call.threads == max(32, block_m * lanes) <= 256
+
+
+@pytest.mark.parametrize("n", [1, 32, 256])
+def test_every_one_k_block_fits_shared_memory(n):
+    """Every K <= 512 at its default K block and every block of columns
+    it takes, with the n_chunk the plan stages."""
+    for k in range(2, 513):
+        bk = TK.two_pass_block_k(k)
+        for bm in TK.two_pass_block_ms(k, bk):
+            nc = TK.two_pass_n_chunk(k, n, bk, bm)
+            assert TK.two_pass_smem_bytes(k, nc, bk, bm) <= \
+                TK.SMEM_BUDGET_BYTES, (k, n, bm)
 
 
 @pytest.mark.parametrize("k,n,bk", [(1024, 1, 1024), (30_000, 1, 512),
