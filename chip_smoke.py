@@ -936,9 +936,12 @@ class Smoke:
                               (512, 1, 512, 16), (256, 64, 256, 32),
                               (301, 3, 512, 16), (12, 2, 16, 256),
                               (40, 1, 64, 128)):
-            got = libs["mm_two_pass"].mm_two_pass_smem_bytes(k, nc, bk, bm)
-            assert got == mk.two_pass_smem_bytes(k, nc, bk, bm), \
-                (k, nc, bk, bm, got)
+            for table in (False, True):  # a launch over a row table too
+                got = libs["mm_two_pass"].mm_two_pass_smem_bytes(
+                    k, nc, bk, bm, int(table))
+                assert got == mk.two_pass_smem_bytes(k, nc, bk, bm,
+                                                     table=table), \
+                    (k, nc, bk, bm, table, got)
         ptxas = ptxas_summary(build.build_log())
         assert ptxas and not any(f.get("stack", 0) or f.get("spill_stores", 0)
                                  or f.get("spill_loads", 0) for f in ptxas), ptxas
@@ -2092,22 +2095,25 @@ class Smoke:
 
     # -- the streaming service ---------------------------------------------
 
-    def measure_program(self, key, label, program, launches, plain_err,
-                        plain_ms, launches_timed=10):
+    def measure_program(self, key, label, program, rows, launches,
+                        plain_err, plain_ms, launches_timed=10):
         """A serve entry of the kernels line: the service's launch
-        program (a captured CUDA graph) timed as the other entries time
-        their kernel -- ``ms`` over back-to-back replays, ``call_ms`` one
-        replay at a time, ``profiler_ms`` torch.profiler's device time
-        of a replay -- beside the plain check its phase made
-        (``plain_err``, ``plain_ms``) and the launches of the service's
-        run (its replays)."""
+        program (a captured CUDA graph) staged with ``rows`` and timed as
+        the other entries time their kernel -- ``ms`` over back-to-back
+        replays, ``call_ms`` one replay at a time, ``profiler_ms``
+        torch.profiler's device time of a replay -- beside the plain
+        check its phase made (``plain_err``, ``plain_ms``) and the
+        launches of the service's run (its replays)."""
         plan = program.plan
-        k, m = program.x.shape
+        k, m = program.k, program.m
+        program.stage(rows)
         call_ms, _ = self.not_counted(lambda: self.time_ms(program.replay))
         ms, _ = self.not_counted(
             lambda: self.kernel_ms(program.replay, launches_timed))
         prof, by_name = self.not_counted(lambda: self.profiler_ms(
             program.replay, launches=3 if ms > 10 else 10))
+        self.torch.cuda.synchronize()
+        program.release()
         if prof is None:
             by_name = {"note": "torch.profiler attributed no device time "
                                "to the graph replay; ms and call_ms are "
@@ -2231,7 +2237,7 @@ class Smoke:
         entry = self.measure_program(
             "mm_single_pass (serve replay)",
             "K=8 M=8 N=1 f32 (serve_bench cohorts, graph replay)", program,
-            replays, err, pms, launches_timed=50)
+            x, replays, err, pms, launches_timed=50)
         emit({"phase": "serve_replay", "replays": replays,
               "captures": captures, "launches": counts, "variants": variants,
               "crash_duplicate_admissions": crash.duplicate_admissions,
@@ -2245,9 +2251,10 @@ class Smoke:
     def _serve_cohorts(self, k, m, bad, cohorts, seed, check):
         """A service at k_min = k over width m on the card: ``cohorts``
         full cohorts of k payloads made on the card (the last ``bad``
-        shifted by 1000).  ``check(svc)`` runs (uncounted) after the
-        first commit, while the static buffer still holds its cohort.
-        Returns (service, per-commit rows, launch counts, variants)."""
+        shifted by 1000).  ``check(svc, rows)`` runs (uncounted) after
+        the first commit, over that cohort's payloads.  Returns (service,
+        per-commit rows, launch counts, variants, the last cohort's
+        payloads)."""
         torch = self.torch
         from repro_torch.serve import (AgentUpdate, AggregationService,
                                        ServeConfig, SimClock)
@@ -2262,10 +2269,11 @@ class Smoke:
         # the initial model's finiteness check: one kernel launch
         assert tally.total("finite_scan") - before == 1, tally.COUNTS
         g = torch.Generator(device=self.dev).manual_seed(seed)
-        out = []
+        out, cohort = [], []  # the payloads of the cohort being sent
 
         def run():
             for c in range(cohorts):
+                cohort.clear()  # the last cohort's go once it committed
                 for agent in range(k):
                     payload = torch.randn((m,), generator=g, device=self.dev)
                     if agent >= k - bad:
@@ -2275,6 +2283,7 @@ class Smoke:
                         t0 = time.perf_counter()
                     svc.submit(AgentUpdate(agent_id=agent, round=svc.round,
                                            payload=payload, seq=c + 1))
+                    cohort.append(payload)
                     del payload
                 torch.cuda.synchronize()
                 commit_ms = (time.perf_counter() - t0) * 1e3
@@ -2288,19 +2297,20 @@ class Smoke:
                             "clipped": commit.clipped,
                             "outliers": list(commit.outliers)})
                 if c == 0:
-                    out[0]["check"] = self.not_counted(lambda: check(svc))
+                    out[0]["check"] = self.not_counted(
+                        lambda: check(svc, cohort))
 
         _, counts, variants = self.main_path(run)
-        return svc, out, counts, variants
+        return svc, out, counts, variants, cohort
 
-    def _first_commit_check(self, svc, chunk):
+    def _first_commit_check(self, svc, rows, chunk):
         """The first commit's estimate (the model: no trust history yet,
         so no clip) against an eager AggregationEngine.aggregate of the
-        same cohort and weights (bit for bit) and the plain version."""
+        same cohort, stacked, and weights (bit for bit) and the plain
+        version."""
         torch = self.torch
         from repro_torch.kernels import ops
-        (program,) = svc.exec_cache.programs()
-        x = program.x
+        x = torch.stack(rows)
         est = svc.model
         a = torch.ones((x.shape[0],), device=self.dev)
         eager = ops.get_engine(num_iters=10, backend="pallas").aggregate(x, a)
@@ -2314,8 +2324,9 @@ class Smoke:
         shapes, _ = qwen3_shapes()
         m = sum(math.prod(s) for s in shapes)
         k = WIDTH_AGENTS
-        svc, commits, counts, variants = self._serve_cohorts(
-            k, m, 1, 3, 5, lambda s: self._first_commit_check(s, 2 ** 24))
+        svc, commits, counts, variants, rows = self._serve_cohorts(
+            k, m, 1, 3, 5,
+            lambda s, r: self._first_commit_check(s, r, 2 ** 24))
         peak = self.torch.cuda.max_memory_allocated()
         check = commits[0].pop("check")
         stats = svc.exec_cache.stats()
@@ -2338,18 +2349,18 @@ class Smoke:
         (program,) = svc.exec_cache.programs()
         entry = self.measure_program(
             "mm_single_pass (serve, Qwen3-0.6B width)",
-            f"K={k} M={m} N=1 f32 (service, graph replay)", program,
+            f"K={k} M={m} N=1 f32 (service, graph replay)", program, rows,
             stats["exec_cache_replays"], check["max_abs_err_all_columns"],
             check["plain_ms"])
         finite = self.measure_finite(
             "finite_scan (serve, Qwen3-0.6B width)",
-            f"f32 {m} (one payload of the service)", program.x[0],
+            f"f32 {m} (one payload of the service)", rows[0],
             self.finite_launches)
         est = svc.model
         residual = self.measure_residual(
             "residual_norms (serve, Qwen3-0.6B width)",
             f"{k + 1} x {m} (the cohort and the model)",
-            [*program.x.unbind(), est], est, self.residual_launches)
+            [*rows, est], est, self.residual_launches)
         emit({"phase": "serve_width", "m": m, "k": k, "stats": stats,
               "launches": counts, "finite_launches": self.finite_launches,
               "residual_launches": self.residual_launches,
@@ -2367,12 +2378,13 @@ class Smoke:
               "bound_by": entry["bound_by"],
               "compile_s": commits[0]["compile_s"],
               "max_memory_allocated": peak})
-        del svc, program, est
+        del svc, program, est, rows
 
     def serve_cohort(self):
         m, k, bad = layer_width(), SERVE_COHORT_K, SERVE_COHORT_BAD
-        svc, commits, counts, variants = self._serve_cohorts(
-            k, m, bad, 2, 6, lambda s: self._first_commit_check(s, 2 ** 20))
+        svc, commits, counts, variants, rows = self._serve_cohorts(
+            k, m, bad, 2, 6,
+            lambda s, r: self._first_commit_check(s, r, 2 ** 20))
         peak = self.torch.cuda.max_memory_allocated()
         check = commits[0].pop("check")
         stats = svc.exec_cache.stats()
@@ -2403,18 +2415,18 @@ class Smoke:
                           f"{mk.two_pass_lanes(bk)}>"), kernel
         entry = self.measure_program(
             "mm_two_pass (serve, 128-client cohort layer)",
-            f"K={k} M={m} N=1 f32 (service, graph replay)", program,
+            f"K={k} M={m} N=1 f32 (service, graph replay)", program, rows,
             stats["exec_cache_replays"], check["max_abs_err_all_columns"],
             check["plain_ms"])
         finite = self.measure_finite(
             "finite_scan (serve, 128-client cohort layer)",
-            f"f32 {m} (one payload of the service)", program.x[0],
+            f"f32 {m} (one payload of the service)", rows[0],
             self.finite_launches)
         est = svc.model
         residual = self.measure_residual(
             "residual_norms (serve, 128-client cohort layer)",
             f"{k + 1} x {m} (the cohort and the model)",
-            [*program.x.unbind(), est], est, self.residual_launches)
+            [*rows, est], est, self.residual_launches)
         emit({"phase": "serve_cohort", "m": m, "k": k, "stats": stats,
               "launches": counts, "finite_launches": self.finite_launches,
               "residual_launches": self.residual_launches,
@@ -2436,7 +2448,7 @@ class Smoke:
               "bound_by": entry["bound_by"],
               "compile_s": commits[0]["compile_s"],
               "max_memory_allocated": peak})
-        del svc, program, est
+        del svc, program, est, rows
 
     # -- the LM substrate --------------------------------------------------
 

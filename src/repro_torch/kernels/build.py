@@ -37,15 +37,15 @@ _P, _I, _I64, _F, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float, ctypes.c_size_t)
 _SIGNATURES = {
     "mm_single_pass": {
-        "mm_single_pass_launch": (_I, [_P, _I, _I64, _I, _I64, _P, _I, _P, _I,
-                                       _I, _I, _F, _I, _P]),
+        "mm_single_pass_launch": (_I, [_P, _P, _I, _I64, _I, _I64, _P, _I, _P,
+                                       _I, _I, _I, _F, _I, _P]),
         "mm_single_pass_smem_bytes": (_SZ, [_I, _I, _I, _I]),
         "mm_single_pass_config": (_I, [_I, _I, _I64, _I, _I, _I, _P, _P, _I]),
     },
     "mm_two_pass": {
-        "mm_two_pass_launch": (_I, [_P, _I, _I64, _I, _I64, _P, _I, _P, _I,
-                                    _I, _I, _I, _F, _I, _P]),
-        "mm_two_pass_smem_bytes": (_SZ, [_I, _I, _I, _I]),
+        "mm_two_pass_launch": (_I, [_P, _P, _I, _I64, _I, _I64, _P, _I, _P,
+                                    _I, _I, _I, _I, _F, _I, _P]),
+        "mm_two_pass_smem_bytes": (_SZ, [_I, _I, _I, _I, _I]),
         "mm_two_pass_blocks": (_I, [_I, _I, _I64, _I, _I, _I, _I, _I, _P]),
         "mm_two_pass_config": (_I, [_I, _I, _I64, _I, _I, _I, _I, _I, _P, _P,
                                     _I]),

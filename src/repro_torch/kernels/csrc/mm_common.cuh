@@ -71,16 +71,28 @@ __host__ __device__ constexpr int ilog2(int p) {
   return p <= 1 ? 0 : 1 + ilog2(p / 2);
 }
 
-// Load rows [0, cnt) x columns [0, cols) of a row-major (.., ld) array
-// starting at (row0, m0) into tile[r * bm + col] as f32; columns past
-// `cols` are zero, the launcher's zero M padding done in place.
+// A block's copy of a table launch's row addresses, in shared memory.  It
+// is read through a volatile pointer, so each load of an element reads its
+// row's base there: left free, the compiler holds every base of a column
+// loop in registers, which spills the widest kernels and, since one kernel
+// serves both, slows the launches without a table too.
 template <typename T>
-__device__ void load_tile(float* tile, const T* __restrict__ x, int64_t ld,
-                          int64_t row0, int cnt, int64_t m0, int cols,
-                          int bm) {
-  for (int p = threadIdx.x; p < cnt * bm; p += blockDim.x) {
-    int r = p / bm, col = p - r * bm;
-    tile[p] = col < cols ? to_f32(x[(row0 + r) * ld + m0 + col]) : 0.0f;
+using RowBases = const T* const volatile*;
+
+// Load rows [0, cnt) x columns [m0, m0 + cols) into tile[r * bm + col] as
+// f32; columns past `cols` are zero, the launcher's zero M padding done in
+// place.  Row r lies at rows[r] where the launch has a device table of row
+// addresses, else at x + r * ld.  A warp takes one row at a time, so each
+// row's base is resolved once and its lanes read neighbouring columns.
+template <typename T>
+__device__ void load_tile(float* tile, const T* __restrict__ x,
+                          const T* const* __restrict__ rows, int64_t ld,
+                          int cnt, int64_t m0, int cols, int bm) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < cnt; r += warps) {
+    const T* row = (rows ? rows[r] : x + (int64_t)r * ld) + m0;
+    for (int col = lane; col < bm; col += 32)
+      tile[r * bm + col] = col < cols ? to_f32(row[col]) : 0.0f;
   }
 }
 

@@ -66,6 +66,20 @@
 // Offsets into x and the output are 64-bit: K x M passes 2^31 at the full
 // width of a model's parameter tree.  No variant pads or copies x; each
 // masks the ragged edge itself.
+//
+// Rows where they lie: a weighted launch may pass a device table of k row
+// addresses instead of x, and row r is then read at rows[r] (the
+// streaming service's launch program reads its cohort's payloads so,
+// without staging them into one (k, M) buffer).  Each block resolves the
+// bases once: regs copies the table to shared memory before its column
+// loop, warp holds a lane's rows in registers, smem resolves a row once
+// per block as a warp loads it.  The elements read, and their order, are
+// those of the (k, M) launch, so the estimate is the same bits.  Without
+// a table (x, ld) addresses the rows as before.  Unweighted launches take
+// no table (the service launches weighted only): with the table path in
+// its column loop, unweighted regs<8> took 25.9 ms at (8, 751,894,528)
+// without a table against 24.8 on an H100, so its columns are compiled
+// without it.
 #include "mm_common.cuh"
 
 namespace {
@@ -178,14 +192,25 @@ __device__ __forceinline__ float irls(const float (&xv)[P], const float (&av)[P]
   return mu;
 }
 
-// Column col's k values in row order; 0 on sentinel rows.
+// Column col's k values in row order; 0 on sentinel rows.  Row r lies at
+// bases[r] (the block's copy of a table launch's addresses) where the
+// launch has a table (rows, a parameter: no register holds the test across
+// the loop), else at x + r * ld.
 template <int KMAX, typename T>
 __device__ __forceinline__ void load_column(float (&v)[KMAX],
                                             const T* __restrict__ x,
-                                            int64_t ld, int k, int64_t col) {
+                                            int64_t ld, const void* rows,
+                                            mm::RowBases<T> bases, int k,
+                                            int64_t col) {
+  if (rows) {
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r)
-    v[r] = r < k ? mm::to_f32(x[(int64_t)r * ld + col]) : 0.0f;
+    for (int r = 0; r < KMAX; ++r)
+      v[r] = r < k ? mm::to_f32(bases[r][col]) : 0.0f;
+  } else {
+#pragma unroll
+    for (int r = 0; r < KMAX; ++r)
+      v[r] = r < k ? mm::to_f32(x[(int64_t)r * ld + col]) : 0.0f;
+  }
 }
 
 // One thread's columns, grid-stride: its next column is loaded into
@@ -194,9 +219,9 @@ __device__ __forceinline__ void load_column(float (&v)[KMAX],
 // where it can, so the sentinel predicates fold away.
 template <int KMAX, bool WEIGHTED, typename T>
 __device__ __forceinline__ void regs_columns(
-    const T* __restrict__ x, int64_t ld, int k, int64_t m,
-    const float* aw, int lda, int n, T* __restrict__ out, int num_iters,
-    float c) {
+    const T* __restrict__ x, int64_t ld, const void* rows,
+    mm::RowBases<T> bases, int k, int64_t m, const float* aw, int lda, int n,
+    T* __restrict__ out, int num_iters, float c) {
   constexpr int LOG = ilog2(KMAX);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -206,12 +231,13 @@ __device__ __forceinline__ void regs_columns(
     for (int r = 0; r < KMAX; ++r) a0[r] = r < k ? aw[r * lda] : 0.0f;
   }
   float next[KMAX];
-  if (col < m) load_column(next, x, ld, k, col);
+  if (col < m) load_column(next, x, ld, rows, bases, k, col);
   for (; col < m; col += stride) {
     float v[KMAX];
 #pragma unroll
     for (int r = 0; r < KMAX; ++r) v[r] = next[r];
-    if (col + stride < m) load_column(next, x, ld, k, col + stride);
+    if (col + stride < m)
+      load_column(next, x, ld, rows, bases, k, col + stride);
 
     if (!WEIGHTED) {
       // the rank midpoint needs values only: sort the 32-bit keys and run
@@ -274,25 +300,34 @@ template <int KMAX, typename T>
 __global__ void __launch_bounds__(mm::kThreads)
 mm_regs(const T* __restrict__ x, int64_t ld, int k, int64_t m,
         const float* __restrict__ a, int n, T* __restrict__ out,
-        int num_iters, float c, int weighted) {
+        int num_iters, float c, int weighted,
+        const T* const* __restrict__ rows) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ const T* table[KMAX];             // a table launch's rows
   float* aw = reinterpret_cast<float*>(smem);  // (k, lda)
   const int lda = n | 1;
   for (int p = threadIdx.x; p < k * n; p += blockDim.x) {
     const int r = p / n;
     aw[r * lda + (p - r * n)] = a[p];
   }
+  if (rows)
+    for (int r = threadIdx.x; r < k; r += blockDim.x) table[r] = rows[r];
   __syncthreads();
+  const mm::RowBases<T> bases = table;
   if (weighted) {
     if (k == KMAX)
-      regs_columns<KMAX, true>(x, ld, KMAX, m, aw, lda, n, out, num_iters, c);
+      regs_columns<KMAX, true>(x, ld, rows, bases, KMAX, m, aw, lda, n, out,
+                               num_iters, c);
     else
-      regs_columns<KMAX, true>(x, ld, k, m, aw, lda, n, out, num_iters, c);
-  } else {
+      regs_columns<KMAX, true>(x, ld, rows, bases, k, m, aw, lda, n, out,
+                               num_iters, c);
+  } else {  // no table (dispatch)
     if (k == KMAX)
-      regs_columns<KMAX, false>(x, ld, KMAX, m, aw, lda, n, out, num_iters, c);
+      regs_columns<KMAX, false, T>(x, ld, nullptr, bases, KMAX, m, aw, lda,
+                                   n, out, num_iters, c);
     else
-      regs_columns<KMAX, false>(x, ld, k, m, aw, lda, n, out, num_iters, c);
+      regs_columns<KMAX, false, T>(x, ld, nullptr, bases, k, m, aw, lda, n,
+                                   out, num_iters, c);
   }
 }
 
@@ -333,7 +368,8 @@ template <int RPL, typename T>
 __global__ void __launch_bounds__(mm::kThreads)
 mm_warp(const T* __restrict__ x, int64_t ld, int k, int64_t m,
         const float* __restrict__ a, int n, T* __restrict__ out,
-        int num_iters, float c, int weighted) {
+        int num_iters, float c, int weighted,
+        const T* const* __restrict__ rows) {
   const int lane = threadIdx.x & 31;
   const int64_t pair = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (pair >= m * n) return;  // the whole warp leaves together
@@ -346,7 +382,9 @@ mm_warp(const T* __restrict__ x, int64_t ld, int k, int64_t m,
   for (int q = 0; q < RPL; ++q) {
     const int r = lane + 32 * q;
     const bool valid = r < k;
-    v[q] = valid ? mm::to_f32(x[(int64_t)r * ld + col]) : 0.0f;
+    // the lane's row, resolved once: it reads one element of it
+    v[q] = valid ? mm::to_f32((rows ? rows[r] : x + (int64_t)r * ld)[col])
+                 : 0.0f;
     w[q] = valid ? a[r * n + nn] : 0.0f;
     key[q] = valid ? mm::sort_key(v[q]) : 0xffffffffu;  // sentinels last
   }
@@ -402,7 +440,8 @@ template <typename T>
 __global__ void __launch_bounds__(mm::kThreads)
 mm_smem(const T* __restrict__ x, int64_t ld, int k, int64_t m,
         const float* __restrict__ a, int n, T* __restrict__ out, int bm,
-        int num_iters, float c, int weighted) {
+        int num_iters, float c, int weighted,
+        const T* const* __restrict__ rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* tile = reinterpret_cast<float*>(smem);        // (k, bm)
   float* aw = tile + (size_t)k * bm;                    // (k, n)
@@ -411,7 +450,7 @@ mm_smem(const T* __restrict__ x, int64_t ld, int k, int64_t m,
   const int64_t m0 = (int64_t)blockIdx.x * bm;
   const int cols = m - m0 < bm ? (int)(m - m0) : bm;
 
-  mm::load_tile(tile, x, ld, 0, k, m0, cols, bm);
+  mm::load_tile(tile, x, rows, ld, k, m0, cols, bm);
   for (int p = threadIdx.x; p < k * n; p += blockDim.x) aw[p] = a[p];
   __syncthreads();
   mm::rank_sort_columns(tile, idx, k, bm);
@@ -454,6 +493,7 @@ cudaError_t allow_smem(Kern kern, size_t smem, size_t* granted) {
 
 struct Args {
   const void* x;
+  const void* rows;  // a device table of k row addresses, or null
   int64_t ld;
   int k;
   int64_t m;
@@ -515,7 +555,7 @@ int launch_regs(const Args& g) {
   kern<<<(unsigned)blocks, g.bm, g.smem, g.stream>>>(
       static_cast<const T*>(g.x), g.ld, g.k, g.m,
       static_cast<const float*>(g.a), g.n, static_cast<T*>(g.out),
-      g.num_iters, g.c, g.weighted);
+      g.num_iters, g.c, g.weighted, static_cast<const T* const*>(g.rows));
   return (int)cudaGetLastError();
 }
 
@@ -535,7 +575,7 @@ int launch_warp(const Args& g) {
   mm_warp<RPL, T><<<(unsigned)blocks, mm::kThreads, 0, g.stream>>>(
       static_cast<const T*>(g.x), g.ld, g.k, g.m,
       static_cast<const float*>(g.a), g.n, static_cast<T*>(g.out),
-      g.num_iters, g.c, g.weighted);
+      g.num_iters, g.c, g.weighted, static_cast<const T* const*>(g.rows));
   return (int)cudaGetLastError();
 }
 
@@ -557,7 +597,7 @@ int launch_smem(const Args& g) {
   kern<<<(unsigned)blocks, mm::kThreads, g.smem, g.stream>>>(
       static_cast<const T*>(g.x), g.ld, g.k, g.m,
       static_cast<const float*>(g.a), g.n, static_cast<T*>(g.out), g.bm,
-      g.num_iters, g.c, g.weighted);
+      g.num_iters, g.c, g.weighted, static_cast<const T* const*>(g.rows));
   return (int)cudaGetLastError();
 }
 
@@ -588,14 +628,15 @@ size_t smem_bytes(int variant, int k, int n, int bm) {
 
 // Checks the arguments and runs (query == nullptr) or reports (query set)
 // one launch.
-int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
-             const void* a, int n, void* out, int bm, int variant,
+int dispatch(const void* x, const void* rows, int dtype, int64_t ld, int k,
+             int64_t m, const void* a, int n, void* out, int bm, int variant,
              int num_iters, float c, int weighted, void* stream,
              mm::LaunchQuery* query) {
   if (k < 1 || k > 65535 || n < 1 || bm < 1 || m < 1 ||
       (m + bm - 1) / bm > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  const Args g{x, ld, k, m, a, n, out, bm, num_iters, c, weighted,
+  if (rows && !weighted) return (int)cudaErrorNotSupported;
+  const Args g{x, rows, ld, k, m, a, n, out, bm, num_iters, c, weighted,
                smem_bytes(variant, k, n, bm),
                static_cast<cudaStream_t>(stream), query};
   if (dtype == 0) return launch<float>(variant, g);
@@ -614,15 +655,18 @@ size_t mm_single_pass_smem_bytes(int variant, int k, int n, int bm) {
 }
 
 // x: (k, m) row-major with row stride ld, f32 (dtype 0) or bf16 (dtype 1);
+// rows: null, or a device table of k addresses of contiguous rows of m
+// elements of that dtype, read in place of x (x and ld are then unused;
+// weighted launches only, else cudaErrorNotSupported);
 // a: (k, n) f32 normalised weight columns; out: (n, m) in x's dtype;
 // variant: 0 regs, 1 warp, 2 smem; c: Tukey's constant.  Returns the
 // cudaError_t of the launch (0 on success).
-int mm_single_pass_launch(const void* x, int dtype, int64_t ld, int k,
-                          int64_t m, const void* a, int n, void* out, int bm,
-                          int variant, int num_iters, float c, int weighted,
-                          void* stream) {
-  return dispatch(x, dtype, ld, k, m, a, n, out, bm, variant, num_iters, c,
-                  weighted, stream, nullptr);
+int mm_single_pass_launch(const void* x, const void* rows, int dtype,
+                          int64_t ld, int k, int64_t m, const void* a, int n,
+                          void* out, int bm, int variant, int num_iters,
+                          float c, int weighted, void* stream) {
+  return dispatch(x, rows, dtype, ld, k, m, a, n, out, bm, variant,
+                  num_iters, c, weighted, stream, nullptr);
 }
 
 // What mm_single_pass_launch would launch for these arguments on the
@@ -636,8 +680,8 @@ int mm_single_pass_config(int dtype, int k, int64_t m, int n, int bm,
   if (out == nullptr || name == nullptr || name_len < 1)
     return (int)cudaErrorInvalidValue;
   mm::LaunchQuery q{0, 0, 0, 0, 0, name, name_len};
-  const int err = dispatch(nullptr, dtype, m, k, m, nullptr, n, nullptr, bm,
-                           variant, 0, 1.0f, 1, nullptr, &q);
+  const int err = dispatch(nullptr, nullptr, dtype, m, k, m, nullptr, n,
+                           nullptr, bm, variant, 0, 1.0f, 1, nullptr, &q);
   out[0] = q.blocks;
   out[1] = q.threads;
   out[2] = q.smem;

@@ -110,6 +110,32 @@
 //     blocks are held to 128 registers, two 256-thread blocks an SM, as
 //     are all group-layout blocks; the others take what they need, so none
 //     spills.
+//
+// Rows where they lie: a weighted launch may pass a device table of k row
+// addresses instead of x (Params::rows), and row r is then read at
+// rows[r]: the streaming service's launch program reads its cohort's
+// payloads so, without staging them into one (k, M) buffer.  One K block
+// (the group layout): each block copies the table once, before its column
+// loop, to k slots of shared memory past the layout's own, so only a
+// table launch carves them (8 k bytes, k <= 512; smem_bytes counts them)
+// and a launch without one keeps its shared memory and its occupancy.
+// Several K blocks (one warp a column): the table is read where it lies,
+// each chunk's bases through the read-only cache before its elements, so
+// no launch carves more for it at any k.  The loads take the row base by one
+// branch a tile (or chunk) on whether the launch has a table, never one
+// an element; the table's address is read from the parameters there, so
+// no register holds it across the loop (held, it spilled the warp and
+// 16-row group blocks).  The elements read, and their order, are those
+// of the (k, M) launch: the same bits.
+//   Unweighted launches take no table (the service launches weighted
+// only), and the unweighted instantiations are compiled without the table
+// path.  With it in its loop, the unweighted group layout of 32 rows a
+// lane took 112-116 ms at (512, 15,730,944, 1) without a table, against
+// 75-83 on an H100, whatever form the path took: its loads touch 16 rows an
+// instruction and share sectors across warps through L1, and its time
+// swings with their timing (the same kernel with plain loads in place of
+// read-only ones took 116 ms); the unweighted warp layout of 512-row
+// blocks spilled.
 #include "mm_common.cuh"
 
 namespace {
@@ -176,7 +202,36 @@ struct Params {
   int64_t ld, m;
   int k, n, bk, kb, nc, cols, log_cols, num_iters;
   float c;
+  const void* rows;  // a device table of k row addresses, or null
+  int64_t rows_at;   // where the group layout's copy of it lies in smem
 };
+
+// Row r's base in a table launch's device table, through the read-only
+// cache.
+template <typename T>
+__device__ __forceinline__ const T* table_row(const Params& p, int r) {
+  return reinterpret_cast<const T*>(
+      __ldg(static_cast<const long long*>(p.rows) + r));
+}
+
+// The group layout's copy of a table launch's table, in the block's shared
+// memory.
+template <typename T>
+__device__ __forceinline__ mm::RowBases<T> row_bases(const Params& p,
+                                                     unsigned char* smem) {
+  return reinterpret_cast<const T* const*>(smem + p.rows_at);
+}
+
+// Copies a table launch's row addresses to the block's shared memory (the
+// group layout), then a barrier.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const Params& p,
+                                           unsigned char* smem) {
+  const T** bases = reinterpret_cast<const T**>(smem + p.rows_at);
+  for (int r = threadIdx.x; r < p.k; r += blockDim.x)
+    bases[r] = table_row<T>(p, r);
+  __syncthreads();
+}
 
 // Tile address of (row r, column c): rows of `cols` floats, each row's
 // columns rotated by r / (32 / cols), so 32 consecutive rows of one
@@ -408,14 +463,37 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The block's (bk, cols) chunk of rows [r0, r0 + cnt) at column m0, into
 // registers: element e = threadIdx.x + blockDim.x i is row e / cols,
 // column e % cols, so neighbouring threads read one row's contiguous
-// columns.
-template <int RPL, typename T>
+// columns.  Row r lies at the device table's entry r (a table launch;
+// weighted instantiations, TABLE, only) or at x + r * ld.
+template <bool TABLE, int RPL, typename T>
 __device__ __forceinline__ void load_chunk(T (&pre)[RPL],
                                            const T* __restrict__ x,
                                            const Params& p, int64_t m0,
                                            int r0) {
   const int cnt = min(p.k - r0, p.bk);
   const int valid_cols = (int)min((int64_t)p.cols, p.m - m0);
+  if constexpr (TABLE) {
+    if (p.rows) {
+      // every base first (a valid entry each), so their loads overlap:
+      // read one by one beside their elements, each a round trip to L2
+      // once the table outgrows what the tile leaves of L1, they cost
+      // 10% at K 4096 and 14% at K 8192 on an H100
+      const T* row[RPL];
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const int e = threadIdx.x + blockDim.x * i;
+        row[i] = table_row<T>(p, min(r0 + (e >> p.log_cols), p.k - 1));
+      }
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const int e = threadIdx.x + blockDim.x * i;
+        const int rl = e >> p.log_cols, cc = e & (p.cols - 1);
+        pre[i] = rl < cnt && cc < valid_cols ? row[i][m0 + cc]
+                                             : mm::from_f32<T>(0.0f);
+      }
+      return;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < RPL; ++i) {
     const int e = threadIdx.x + blockDim.x * i;
@@ -486,7 +564,7 @@ __device__ __forceinline__ void warp_columns(const T* __restrict__ x,
   if (staged_once) stage_weights(ws, ms, a, p, 0);  // read after the first sync
 
   T pre[RPL];
-  load_chunk(pre, x, p, t * p.cols, 0);
+  load_chunk<WEIGHTED>(pre, x, p, t * p.cols, 0);
   float v[RPL], xs[RPL];  // a block's rows in row order; sorted
   int rw[RPL];            // sorted positions' rows (weighted)
   for (; t < tiles; t += gridDim.x) {
@@ -497,9 +575,10 @@ __device__ __forceinline__ void warp_columns(const T* __restrict__ x,
       __syncthreads();  // the rows' previous readers are done
       store_chunk(pre, tile, p, r0);
       __syncthreads();
-      if (b + 1 < p.kb) load_chunk(pre, x, p, m0, r0 + p.bk);
+      if (b + 1 < p.kb)
+        load_chunk<WEIGHTED>(pre, x, p, m0, r0 + p.bk);
       else if (t + gridDim.x < tiles)
-        load_chunk(pre, x, p, (t + gridDim.x) * p.cols, 0);
+        load_chunk<WEIGHTED>(pre, x, p, (t + gridDim.x) * p.cols, 0);
 #pragma unroll
       for (int q = 0; q < RPL; ++q) {
         const int j = q * 32 + lane;
@@ -708,6 +787,34 @@ __device__ __forceinline__ int group_crossing(const float (&wv)[R],
   return found ? last : -1;
 }
 
+// The column's rows q LANES + li of one tile into v (0 past row k or the
+// last column), read through the table copy where the launch has one (a
+// weighted instantiation, TABLE, only), else at x + r * ld.
+template <int R, int LANES, bool TABLE, typename T>
+__device__ __forceinline__ void load_group(float (&v)[R],
+                                           const T* __restrict__ x,
+                                           const Params& p,
+                                           unsigned char* smem, bool real,
+                                           int64_t mc, int li) {
+  if constexpr (TABLE) {
+    if (p.rows) {
+      const mm::RowBases<T> bases = row_bases<T>(p, smem);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = q * LANES + li;
+        v[q] = real && r < p.k ? mm::to_f32(bases[r][mc]) : 0.0f;
+      }
+      return;
+    }
+  }
+  const T* xc = x + (real ? mc : 0);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int r = q * LANES + li;
+    v[q] = real && r < p.k ? mm::to_f32(xc[(int64_t)r * p.ld]) : 0.0f;
+  }
+}
+
 template <int R, int LANES, bool WEIGHTED, typename T>
 __device__ __forceinline__ void group_columns(const T* __restrict__ x,
                                               const float* __restrict__ a,
@@ -730,6 +837,7 @@ __device__ __forceinline__ void group_columns(const T* __restrict__ x,
   const int64_t tiles = (p.m + cols - 1) / cols;
   int64_t t = blockIdx.x;
   if (t >= tiles) return;  // the whole block leaves together
+  if (WEIGHTED && p.rows) stage_rows<T>(p, smem);
   const bool staged_once = p.nc >= p.n;
   if (staged_once) {
     stage_weights(ws, ms, a, p, 0);
@@ -741,12 +849,7 @@ __device__ __forceinline__ void group_columns(const T* __restrict__ x,
     const bool real = mine && mc < p.m;
     // ---- the column's rows q LANES + li, sorted by the group ----
     float v[R];  // unweighted: the rows as loaded; weighted: then sorted
-    const T* xc = x + (real ? mc : 0);
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int r = q * LANES + li;
-      v[q] = real && r < p.k ? mm::to_f32(xc[(int64_t)r * p.ld]) : 0.0f;
-    }
+    load_group<R, LANES, WEIGHTED>(v, x, p, smem, real, mc, li);
     __syncwarp();  // the last tile's readers of the strips are done
     if constexpr (WEIGHTED) {
       uint64_t s[R];
@@ -917,6 +1020,7 @@ struct Report {
 template <int RPL, bool WEIGHTED, typename T, int LANES>
 int launch(const void* x, const float* a, void* out, const Params& p,
            size_t smem, cudaStream_t stream, const Report& report) {
+  if (p.rows && !WEIGHTED) return (int)cudaErrorNotSupported;  // header
   const int threads = LANES == 32 ? 32 * p.cols : max(32, p.cols * LANES);
   Occupancy occ;
   cudaError_t err =
@@ -971,13 +1075,18 @@ int launch_rows(const void* x, const float* a, void* out, const Params& p,
   return (int)cudaErrorInvalidValue;
 }
 
-size_t smem_bytes(int k, int nc, int bk, int cols) {
+// The group layout's copy of a table launch's table lies past its own
+// slots, on a 16-byte boundary.
+size_t table_at(size_t own) { return (own + 15) & ~(size_t)15; }
+
+size_t smem_bytes(int k, int nc, int bk, int cols, bool table) {
   const size_t kb = (size_t)((k + bk - 1) / bk), k_pad = kb * bk;
   if (kb == 1) {  // group layout: (nc, bk) slice, nc masses, the (R
                   // LANES, 256 / LANES) value and row strips
     const size_t strip = (size_t)group_rows(bk) * kGroupThreads;
-    return sizeof(float) * ((size_t)nc * k_pad + nc + strip) +
-           sizeof(uint16_t) * strip;
+    const size_t own = sizeof(float) * ((size_t)nc * k_pad + nc + strip) +
+                       sizeof(uint16_t) * strip;
+    return table ? table_at(own) + sizeof(void*) * k : own;
   }
   const size_t strip = kb > kRegCombine ? (size_t)next_pow2((int)kb) : 0;
   return sizeof(uint64_t) * cols * strip +
@@ -988,9 +1097,9 @@ size_t smem_bytes(int k, int nc, int bk, int cols) {
 
 // Checks the launch arguments and runs (report empty) or reports one
 // launch.
-int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
-             const void* a, int n, void* out, int bk, int nc, int cols,
-             int num_iters, float c, int weighted, void* stream,
+int dispatch(const void* x, const void* rows, int dtype, int64_t ld, int k,
+             int64_t m, const void* a, int n, void* out, int bk, int nc,
+             int cols, int num_iters, float c, int weighted, void* stream,
              const Report& report) {
   if (k < 1 || n < 1 || m < 1 || bk < 2 || bk > 32 * kMaxRowsPerLane ||
       (bk & (bk - 1)) || nc < 1 || nc > n || cols < 1 || (cols & (cols - 1)))
@@ -998,10 +1107,12 @@ int dispatch(const void* x, int dtype, int64_t ld, int k, int64_t m,
   const int kb = (k + bk - 1) / bk;
   if (cols > (kb == 1 ? kGroupThreads / group_lanes(bk) : kMaxCols))
     return (int)cudaErrorInvalidValue;
-  const Params p{ld, m, k, n, bk, kb, nc, cols, ilog2(cols), num_iters, c};
+  const size_t own = smem_bytes(k, nc, bk, cols, false);
+  const Params p{ld, m, k, n, bk, kb, nc, cols, ilog2(cols), num_iters, c,
+                 rows, (int64_t)table_at(own)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
-  const size_t smem = smem_bytes(k, nc, bk, cols);
+  const size_t smem = smem_bytes(k, nc, bk, cols, rows != nullptr);
   if (dtype == 0)
     return weighted ? launch_rows<true, float>(x, af, out, p, smem, s, report)
                     : launch_rows<false, float>(x, af, out, p, smem, s, report);
@@ -1026,22 +1137,29 @@ extern "C" {
 // block) pairs for the combine, the (K_pad, cols) f32 tile, the (nc,
 // K_pad) weight slice, (2 KB, cols) block stats, the (KB, nc) block
 // masses and the (K_pad, cols) uint16 row index of the sorted blocks.
-size_t mm_two_pass_smem_bytes(int k, int nc, int bk, int cols) {
-  return smem_bytes(k, nc, bk, cols);
+// table: a launch with a device table of row addresses, for which the
+// group layout carves 8 k bytes more, past its own on a 16-byte boundary.
+size_t mm_two_pass_smem_bytes(int k, int nc, int bk, int cols, int table) {
+  return smem_bytes(k, nc, bk, cols, table != 0);
 }
 
 // x: (k, m) row-major with row stride ld, f32 (dtype 0) or bf16 (dtype 1);
+// rows: null, or a device table of k addresses of contiguous rows of m
+// elements of that dtype, read in place of x (x and ld are then unused;
+// with one K block the block carves 8 k bytes of shared memory more for
+// its copy, as mm_two_pass_smem_bytes counts; weighted launches only,
+// else cudaErrorNotSupported);
 // a: (k, n) f32 normalised weight columns; out: (n, m) in x's dtype;
 // bk: the K block, a power of two <= 512 (any number of blocks); nc:
 // weight columns per chunk; cols: columns per block, a power of two, at
 // most 8 with several K blocks and 256 / max(1, bk / 32) with one; c:
 // Tukey's constant.  One launch; returns its cudaError_t.
-int mm_two_pass_launch(const void* x, int dtype, int64_t ld, int k, int64_t m,
-                       const void* a, int n, void* out, int bk, int nc,
-                       int cols, int num_iters, float c, int weighted,
-                       void* stream) {
-  return dispatch(x, dtype, ld, k, m, a, n, out, bk, nc, cols, num_iters, c,
-                  weighted, stream, Report{nullptr, nullptr});
+int mm_two_pass_launch(const void* x, const void* rows, int dtype,
+                       int64_t ld, int k, int64_t m, const void* a, int n,
+                       void* out, int bk, int nc, int cols, int num_iters,
+                       float c, int weighted, void* stream) {
+  return dispatch(x, rows, dtype, ld, k, m, a, n, out, bk, nc, cols,
+                  num_iters, c, weighted, stream, Report{nullptr, nullptr});
 }
 
 // The blocks mm_two_pass_launch would launch for these arguments on the
@@ -1050,8 +1168,9 @@ int mm_two_pass_launch(const void* x, int dtype, int64_t ld, int k, int64_t m,
 int mm_two_pass_blocks(int dtype, int k, int64_t m, int n, int bk, int nc,
                        int cols, int weighted, int64_t* blocks) {
   if (blocks == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(nullptr, dtype, m, k, m, nullptr, n, nullptr, bk, nc, cols,
-                  0, 1.0f, weighted, nullptr, Report{nullptr, blocks});
+  return dispatch(nullptr, nullptr, dtype, m, k, m, nullptr, n, nullptr, bk,
+                  nc, cols, 0, 1.0f, weighted, nullptr,
+                  Report{nullptr, blocks});
 }
 
 // What mm_two_pass_launch would launch for these arguments on the current
@@ -1065,8 +1184,8 @@ int mm_two_pass_config(int dtype, int k, int64_t m, int n, int bk, int nc,
   if (out == nullptr || name == nullptr || name_len < 1)
     return (int)cudaErrorInvalidValue;
   mm::LaunchQuery q{0, 0, 0, 0, 0, name, name_len};
-  const int err = dispatch(nullptr, dtype, m, k, m, nullptr, n, nullptr, bk,
-                           nc, cols, 0, 1.0f, weighted, nullptr,
+  const int err = dispatch(nullptr, nullptr, dtype, m, k, m, nullptr, n,
+                           nullptr, bk, nc, cols, 0, 1.0f, weighted, nullptr,
                            Report{&q, nullptr});
   out[0] = q.blocks;
   out[1] = q.threads;

@@ -26,6 +26,13 @@ kernel's arithmetic on the padded operands: the sorted-order f32
 cumulative weights, the crossing with no epsilon, the rank midpoints,
 and the per-block approximation.
 
+The wrappers take x as a (K, M) tensor or, in a weighted launch on the
+card, as a ``RowTable``: K rows that lie anywhere, each contiguous, given
+by a device table of their addresses, which the kernels read in place of
+x (the streaming service's launch program reads its cohort so, copying
+nothing).  Both launch the same plan and read the same elements in the
+same order, so they give the same bits.
+
 ``kernel_call`` turns a plan into the launch the wrapper makes, as data
 (``KernelCall``: the kernel's instantiation, threads, shared memory, the
 units its blocks walk, its operands), and the wrappers take their launch
@@ -56,7 +63,7 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -119,6 +126,29 @@ _CALL_RECORDERS: list = []
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class RowTable(NamedTuple):
+    """K rows of M values each, read where they lie: ``table`` is a (K,)
+    int64 tensor of the rows' addresses on their CUDA device.  Each row
+    is a contiguous tensor of ``dtype``; the caller keeps the rows alive
+    until the launches that read them have run.  It stands for a (K, M)
+    x in the wrappers of a weighted launch, which pass the table to the
+    kernel in place of x (``shape``, ``dtype`` and ``device`` are x's)."""
+    table: torch.Tensor
+    m: int
+    dtype: torch.dtype
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.table.shape[0], self.m)
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+
+Rows = Union[torch.Tensor, RowTable]
 
 
 def dtype_name(dtype) -> str:
@@ -233,12 +263,15 @@ def two_pass_block_ms(k: int, block_k: int) -> Tuple[int, ...]:
 
 
 def two_pass_smem_bytes(k: int, n_chunk: int, block_k: int,
-                        block_m: int) -> int:
+                        block_m: int, *, table: bool = False) -> int:
     """Shared memory one block of the two-pass kernel carves (C:
     ``mm_two_pass_smem_bytes``).  One K block: the (n_chunk, bk) weight
     slice, n_chunk masses and the sorted columns' f32 values and uint16
     rows in strips laid out for the widest block, rows a lane x 256
-    entries each, whatever ``block_m``.  Several: above 32 K
+    entries each, whatever ``block_m``; a launch that reads its rows
+    through a ``RowTable`` (``table``) adds the block's copy of the k
+    addresses, 8 k bytes on a 16-byte boundary (several K blocks read
+    the table where it lies, and carve nothing for it).  Several: above 32 K
     blocks each warp's strip of next_pow2(KB) 8-byte (value, block) pairs
     for the combine; the (K_pad, bm) f32 tile, the (n_chunk, K_pad)
     weight slice, (2 KB, bm) block stats, (KB, n_chunk) block masses and
@@ -247,7 +280,8 @@ def two_pass_smem_bytes(k: int, n_chunk: int, block_k: int,
     k_pad = kb * block_k
     if kb == 1:
         strip = two_pass_rows(block_k) * TWO_PASS_GROUP_THREADS
-        return 4 * (n_chunk * k_pad + n_chunk + strip) + 2 * strip
+        own = 4 * (n_chunk * k_pad + n_chunk + strip) + 2 * strip
+        return -(-own // 16) * 16 + 8 * k if table else own
     strip = next_pow2(kb) if kb > _TWO_PASS_REG_COMBINE else 0
     return (8 * block_m * strip
             + 4 * (k_pad * block_m + n_chunk * k_pad + 2 * kb * block_m
@@ -296,7 +330,8 @@ def launch_plan(k: int, m: int, n: int = 1, *,
                 block_k: Optional[int] = None,
                 path: Optional[str] = None,
                 variant: Optional[str] = None,
-                n_chunk: Optional[int] = None) -> LaunchPlan:
+                n_chunk: Optional[int] = None,
+                table: bool = False) -> LaunchPlan:
     """Resolve the kernel path + tile sizes (via kernels.tuning when
     unset) and derive the grid, modeled HBM traffic and shared memory of
     a (K, M) x (K, N) launch.  ``path=None`` takes the cached tuning
@@ -367,7 +402,7 @@ def launch_plan(k: int, m: int, n: int = 1, *,
             weight_bytes=weight_bytes, output_bytes=output_bytes,
             path=path, n_chunk=nc, num_k_blocks=kb,
             stats_bytes=2 * kb * block_m * 4,
-            smem_bytes=two_pass_smem_bytes(k, nc, bk, block_m),
+            smem_bytes=two_pass_smem_bytes(k, nc, bk, block_m, table=table),
         )
 
     variant = variant or single_pass_variant(k, m, n)
@@ -486,13 +521,14 @@ _TYPE_NAMES = {torch.float32: "float", torch.bfloat16: "bf16"}
 
 
 def kernel_call(plan: LaunchPlan, *, k: int, m: int, dtype=torch.float32,
-                weighted: bool = True, num_iters: int = 10) -> KernelCall:
-    """The launch ``plan`` makes over a (k, m) x, as the C entry points
-    configure it: the instantiation their dispatch picks, threads a
-    block, dynamic shared memory, the walk and the operands.  Launches
-    nothing."""
+                weighted: bool = True, num_iters: int = 10,
+                table: bool = False) -> KernelCall:
+    """The launch ``plan`` makes over a (k, m) x (``table``: over k rows
+    given by a ``RowTable``), as the C entry points configure it: the
+    instantiation their dispatch picks, threads a block, dynamic shared
+    memory, the walk and the operands.  Launches nothing."""
     return _realized_call(plan, int(k), int(m), _as_dtype(dtype),
-                          bool(weighted), int(num_iters))
+                          bool(weighted), int(num_iters), bool(table))
 
 
 # a wrapper asks for its call on every launch: the same few geometries
@@ -500,7 +536,7 @@ def kernel_call(plan: LaunchPlan, *, k: int, m: int, dtype=torch.float32,
 # immutable calls are kept rather than rebuilt on the launch's host path
 @functools.lru_cache(maxsize=4096)
 def _realized_call(plan: LaunchPlan, k: int, m: int, dtype: torch.dtype,
-                   weighted: bool, num_iters: int) -> KernelCall:
+                   weighted: bool, num_iters: int, table: bool) -> KernelCall:
     n = plan.n_out
     tname = _TYPE_NAMES[dtype]
     tiles = -(-m // plan.block_m)
@@ -518,7 +554,7 @@ def _realized_call(plan: LaunchPlan, k: int, m: int, dtype: torch.dtype,
                f"{tname}, {lanes}>"
         units, grid_stride = tiles, True
         smem = two_pass_smem_bytes(k, plan.n_chunk, plan.block_k,
-                                   plan.block_m)
+                                   plan.block_m, table=table)
         # its (K_pad, bm) tile arrives as num_k_blocks (bk, bm) loads
         tile, loads = (plan.block_k, plan.block_m), tiles * plan.num_k_blocks
         args = (plan.block_k, plan.n_chunk, plan.block_m)
@@ -556,7 +592,8 @@ def launch_query(call: KernelCall) -> dict:
     """What the C entry point would launch for ``call`` on the current
     card, through its own dispatch (``mm_*_config``), launching nothing:
     the instantiation, blocks, threads, dynamic shared memory, the blocks
-    of that size one SM holds (0 where none fits) and the SM count."""
+    of that size one SM holds (0 where none fits) and the SM count, for
+    the launch over a (K, M) x (the C query takes no row table)."""
     out = (ctypes.c_int64 * 5)()
     name = ctypes.create_string_buffer(96)
     code = _DTYPE_CODES[_as_dtype(call.operands[0].dtype)]
@@ -567,7 +604,8 @@ def launch_query(call: KernelCall) -> dict:
                                      ctypes.byref(out), ctypes.byref(name),
                                      len(name))
         smem_model = lib.mm_two_pass_smem_bytes(
-            call.k, call.plan.n_chunk, call.plan.block_k, call.plan.block_m)
+            call.k, call.plan.n_chunk, call.plan.block_k, call.plan.block_m,
+            0)
     else:
         lib = build.library("mm_single_pass")
         err = lib.mm_single_pass_config(code, call.k, call.m,
@@ -754,7 +792,7 @@ def mm_two_pass_plain(xp: torch.Tensor, ap: torch.Tensor, *, k: int,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
+def _check_cuda_operands(x: Rows, a: torch.Tensor, plan: LaunchPlan,
                          k: int) -> None:
     if plan.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(
@@ -767,9 +805,15 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
         raise ValueError(f"the MM kernels run on CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 2 or x.shape[0] != k or x.shape[1] < 1:
+    if isinstance(x, RowTable):
+        t = x.table
+        if t.dtype != torch.int64 or tuple(t.shape) != (k,) or \
+                not t.is_contiguous() or x.m < 1:
+            raise ValueError(f"a row table must be a contiguous int64 ({k},) "
+                             f"tensor of the addresses of rows of M>=1 values")
+    elif x.dim() != 2 or x.shape[0] != k or x.shape[1] < 1:
         raise ValueError(f"x must be ({k}, M>=1), got {tuple(x.shape)}")
-    if x.stride(1) != 1 and x.shape[1] > 1:
+    elif x.stride(1) != 1 and x.shape[1] > 1:
         raise ValueError("x rows must be contiguous (stride 1 along M)")
     if a.dtype != torch.float32 or a.device != x.device or \
             tuple(a.shape) != (k, plan.n_out) or not a.is_contiguous():
@@ -777,38 +821,46 @@ def _check_cuda_operands(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan,
                          f"{plan.n_out}) tensor on {x.device}")
 
 
-def _launch_args(x, a, out, plan):
+def _launch_args(x: Rows, a, out, plan):
+    """The C entry point's leading arguments: x, the row table (0: none),
+    dtype, the row stride, K, M, a, N and out; and the stream."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return (x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.shape[0],
-            x.shape[1], a.data_ptr(), plan.n_out, out.data_ptr()), stream
+    k, m = x.shape
+    if isinstance(x, RowTable):
+        xp, rows, ld = 0, x.table.data_ptr(), m
+    else:
+        xp, rows, ld = x.data_ptr(), 0, x.stride(0)
+    return (xp, rows, _DTYPE_CODES[x.dtype], ld, k, m, a.data_ptr(),
+            plan.n_out, out.data_ptr()), stream
 
 
-def _wrapper_call(x: torch.Tensor, plan: LaunchPlan, weighted: bool,
+def _wrapper_call(x: Rows, plan: LaunchPlan, weighted: bool,
                   num_iters: int) -> KernelCall:
     """The call's ``KernelCall``, recorded in every open ``record_calls``
     scope."""
     k, m = x.shape
-    call = _realized_call(plan, k, m, x.dtype, weighted, num_iters)
+    call = _realized_call(plan, k, m, x.dtype, weighted, num_iters,
+                          isinstance(x, RowTable))
     _record_call(call)
     return call
 
 
-def _meta_out(x: torch.Tensor, plan: LaunchPlan) -> torch.Tensor:
+def _meta_out(x: Rows, plan: LaunchPlan) -> torch.Tensor:
     """The (N, M) estimate of a launch on the meta device (which passed
     the card's checks): its shape and dtype, computed by nothing."""
     return torch.empty((plan.n_out, x.shape[1]), dtype=x.dtype,
                        device=x.device)
 
 
-def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
+def single_pass(x: Rows, a: torch.Tensor, plan: LaunchPlan, *,
                 num_iters: int = 10, c: float = mestimators.TUKEY_C95,
                 weighted: bool = True) -> torch.Tensor:
     """Single-pass MM aggregation: (K, M) x (K, N) normalized -> (N, M).
-    Launches the plan's variant of the CUDA kernel for a CUDA tensor,
-    runs the plain version for a CPU tensor."""
+    Launches the plan's variant of the CUDA kernel for a CUDA tensor or
+    a ``RowTable``, runs the plain version for a CPU tensor."""
     k, m = x.shape
     call = _wrapper_call(x, plan, weighted, num_iters)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and isinstance(x, torch.Tensor):
         xp, ap = _pad_inputs(x, a, plan=plan)
         return mm_single_pass_plain(xp, ap, k=k, num_iters=num_iters, c=c,
                                     weighted=weighted)[:, :m]
@@ -826,14 +878,14 @@ def single_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
     return out
 
 
-def two_pass(x: torch.Tensor, a: torch.Tensor, plan: LaunchPlan, *,
+def two_pass(x: Rows, a: torch.Tensor, plan: LaunchPlan, *,
              num_iters: int = 10, c: float = mestimators.TUKEY_C95,
              weighted: bool = True) -> torch.Tensor:
     """Two-pass K-major MM aggregation, as ``single_pass``: one kernel
     launch per call, which sums the K block masses itself."""
     k, m = x.shape
     call = _wrapper_call(x, plan, weighted, num_iters)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and isinstance(x, torch.Tensor):
         xp, ap = _pad_inputs(x, a, plan=plan)
         return mm_two_pass_plain(xp, ap, k=k, block_k=plan.block_k,
                                  num_iters=num_iters, c=c,
@@ -866,7 +918,7 @@ def two_pass_blocks(plan: LaunchPlan, k: int, dtype=torch.float32,
     return blocks.value
 
 
-def _launch(x: torch.Tensor, a: torch.Tensor, *, weighted: bool,
+def _launch(x: Rows, a: torch.Tensor, *, weighted: bool,
             num_iters: int, c: float, block_m: Optional[int],
             block_k: Optional[int], path: Optional[str] = None,
             n_chunk: Optional[int] = None) -> torch.Tensor:
@@ -876,23 +928,30 @@ def _launch(x: torch.Tensor, a: torch.Tensor, *, weighted: bool,
     the kernels select the absolute cumulative-weight-1/2 crossing, so
     unnormalized weights would be wrong, not just scaled."""
     k, m = x.shape
+    if isinstance(x, RowTable) and not weighted:
+        # the kernels' unweighted columns are compiled without the table
+        # path, which slowed their launches without a table
+        raise ValueError("only a weighted launch reads a row table; pass "
+                         "the rows of an unweighted one as a (K, M) tensor")
     if weighted:
         a = location.normalize_weights(a, dtype=torch.float32)
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
     plan = launch_plan(k, m, a.shape[1], dtype=x.dtype, block_m=block_m,
-                       block_k=block_k, path=path, n_chunk=n_chunk)
+                       block_k=block_k, path=path, n_chunk=n_chunk,
+                       table=isinstance(x, RowTable))
     run = two_pass if plan.path == "two_pass" else single_pass
     return run(x, a, plan, num_iters=num_iters, c=c, weighted=weighted)
 
 
-def mm_aggregate_2d(x: torch.Tensor, a: Optional[torch.Tensor] = None, *,
+def mm_aggregate_2d(x: Rows, a: Optional[torch.Tensor] = None, *,
                     num_iters: int = 10, c: float = mestimators.TUKEY_C95,
                     block_m: Optional[int] = None,
                     block_k: Optional[int] = None,
                     path: Optional[str] = None) -> torch.Tensor:
-    """MM-aggregate a (K, M) tensor along axis 0 -> (M,).  ``a`` is an
-    optional (K,) weight vector, normalized internally."""
-    if x.dim() != 2:
+    """MM-aggregate a (K, M) tensor, or the K rows of a ``RowTable``,
+    along axis 0 -> (M,).  ``a`` is an optional (K,) weight vector,
+    normalized internally."""
+    if isinstance(x, torch.Tensor) and x.dim() != 2:
         raise ValueError(f"mm_aggregate_2d wants (K, M), got {tuple(x.shape)}")
     k = x.shape[0]
     if a is None:

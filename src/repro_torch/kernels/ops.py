@@ -35,9 +35,10 @@ the engine's eager code (the kernels' plain versions).
 
 - ``lower_launch(k, m, dtype).compile()`` gives a ``LaunchProgram``, the
   launch half of ``aggregate`` for one fixed cohort geometry (the
-  streaming service assembles cohorts itself): a static (k, m) cohort
-  buffer and (k,) weight buffer, one capture per geometry, each cohort
-  copied in and replayed.
+  streaming service assembles cohorts itself): a static (k,) table of
+  row addresses and (k,) weight buffer, one capture per geometry; each
+  cohort's row addresses are written into the table and the kernel
+  reads the rows where they lie.
 - ``lower_tree(tree, a).compile()`` gives a ``TreeProgram``, the
   counterpart of the reference's jitted stage->kernel->split program of
   one tree layout: a static (K, M_total) staging buffer and weights,
@@ -240,13 +241,16 @@ class AggregationEngine:
         self.path = path
         self._layouts: dict = {}
 
-    def _plan(self, k: int, m: int, n: int = 1, dtype=torch.float32):
+    def _plan(self, k: int, m: int, n: int = 1, dtype=torch.float32, *,
+              table: bool = False):
         """The launch plan of a (k, m) x (k, n) launch of this engine (None
-        on the ``jnp`` backend, which launches no kernel)."""
+        on the ``jnp`` backend, which launches no kernel); ``table``: over
+        rows given by a ``RowTable``."""
         if self.backend != "pallas":
             return None
         return _k.launch_plan(k, m, n, dtype=dtype, block_m=self.block_m,
-                              block_k=self.block_k, path=self.path)
+                              block_k=self.block_k, path=self.path,
+                              table=table)
 
     def _record(self, x: torch.Tensor, k: int, m: int, n: int = 1) -> None:
         """Tune the workload where asked (before its plan is resolved),
@@ -345,18 +349,24 @@ class AggregationEngine:
     def lower_launch(self, k: int, m: int, dtype=torch.float32, *,
                      weighted: bool = True, device="cuda") -> "LoweredLaunch":
         """The one-cohort launch for a fixed geometry, not yet compiled:
-        ``(x (k, m) dtype, a (k,) f32) -> (m,) dtype``.
+        ``(k rows of m dtype values, a (k,) f32) -> (m,) dtype``.
 
-        The caller stages each cohort into the program's static buffers
-        and launches the compiled program for every admitted cohort.  The
-        workload resolution (tuning-cache winner or heuristic, the
-        single<->two-pass path) is ``aggregate``'s, and the compile
-        records it for launch audits.  The cohort buffer is always the
-        program's own static input, which the caller re-stages on every
-        attempt."""
+        The caller stages each cohort's rows into the program (their
+        addresses into its static table) and launches the compiled
+        program for every admitted cohort.  The workload resolution
+        (tuning-cache winner or heuristic, the single<->two-pass path) is
+        ``aggregate``'s, and the compile records it for launch audits.
+        The table and weights are the program's static inputs, which the
+        caller re-stages on every attempt.  On the card the kernels read
+        a row table in weighted launches only, so an unweighted program
+        there raises ``ValueError``."""
         dev = devices.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.type == "cuda" and self.backend == "pallas" and not weighted:
+            raise ValueError("on the card a launch program reads its rows "
+                             "through a table, which only weighted kernel "
+                             "launches take: lower it weighted")
         return LoweredLaunch(self, int(k), int(m), _k._as_dtype(dtype),
                              weighted=weighted, device=dev)
 
@@ -364,40 +374,87 @@ class AggregationEngine:
 class LaunchProgram:
     """A compiled one-cohort launch (``AggregationEngine.lower_launch``).
 
-    ``x`` (k, m) and ``a`` (k,) are its static inputs.  ``stage`` copies
-    a cohort into them; ``replay`` runs the launch on them and returns
-    the (m,) estimate.  On a CUDA device the launch is a captured CUDA
-    graph and the estimate is the graph's own output tensor, overwritten
-    by the next replay of this program: a caller that keeps it clones it
-    first.  Each replay counts the graph's captured launches
-    (``launches.replay``).  On the CPU the program calls the engine's
-    launch (the kernels' plain versions) on the static inputs.
+    Its static inputs are ``table``, a (k,) int64 tensor of row addresses
+    on the program's device, and the (k,) weights ``a``.  ``stage(rows,
+    a)`` takes k rows, each a contiguous tensor of m values of the
+    program's dtype on its device (a (k, m) tensor gives its rows), and,
+    for a weighted program, the weights into ``a``; ``replay`` runs the
+    launch on them and returns the (m,) estimate.  The program holds the
+    staged rows (``rows``) until ``release`` or its next stage, and
+    refuses a replay while it holds none: the caller releases them once
+    the replays that read them have run (the service does after its
+    wait), and until then the table never points at freed memory.
+
+    On the card (the kernel backend) the launch is a captured CUDA graph
+    whose kernel reads each row where it lies, through ``table``, which
+    ``stage`` fills: nothing of a row is copied.  The estimate is the
+    graph's own output tensor, overwritten by the next replay of this
+    program: a caller that keeps it clones it first.  Each replay counts
+    the graph's captured launches (``launches.replay``).  On the CPU, and
+    on the ``jnp`` backend, which launches no kernel, the program runs
+    the engine's launch on the rows stacked, and ``table`` is not read.
     """
 
-    def __init__(self, launch, x: torch.Tensor, a: torch.Tensor, plan):
+    def __init__(self, launch, table: torch.Tensor, a: torch.Tensor, plan,
+                 *, m: int, dtype: torch.dtype = torch.float32,
+                 reads_table: bool = False):
         self._launch = launch
-        self.x = x
+        self.table = table
         self.a = a
         self.plan = plan
+        self.m = int(m)
+        self.dtype = dtype
+        self.reads_table = reads_table  # the kernel reads the rows' table
+        self.rows: tuple = ()
+        self._host: Optional[torch.Tensor] = None  # pinned (k,) addresses
+        self._copied: Optional[torch.cuda.Event] = None  # _host read
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.launches = collections.Counter()  # launch keys a replay
         self.replays = 0
 
+    @property
+    def k(self) -> int:
+        return self.table.shape[0]
+
     def stage(self, rows, a: Optional[torch.Tensor] = None) -> None:
-        """Copy k rows (a (k, m) tensor, or k tensors of m values each)
-        and, for a weighted program, the (k,) weights into the static
-        inputs."""
-        if len(rows) != self.x.shape[0]:
-            raise ValueError(f"the program takes {self.x.shape[0]} rows, "
+        """Take k rows (a (k, m) tensor, or k tensors of m values each)
+        and, for a weighted program, the (k,) weights.  A program whose
+        kernel reads the table writes the rows' addresses into it through
+        a pinned host buffer of its own, in one copy on the current
+        stream that nothing waits for.  A row that is not a contiguous
+        tensor of the program's m values, dtype and device raises
+        ``ValueError``, and nothing is staged."""
+        if len(rows) != self.k:
+            raise ValueError(f"the program takes {self.k} rows, "
                              f"got {len(rows)}")
-        for dst, row in zip(self.x, rows):
-            dst.copy_(row.reshape(-1))
+        rows = tuple(rows)
+        _check_rows(((f"row {i}", r) for i, r in enumerate(rows)), self.m,
+                    self.dtype, self.table.device, "the launch program",
+                    "the program")
+        if self.reads_table:
+            if self._host is None:
+                self._host = torch.empty(self.k, dtype=torch.int64,
+                                         pin_memory=True)
+                self._copied = torch.cuda.Event()
+            self._copied.synchronize()  # the last copy has read _host
+            _write_row_table(rows, self.table, self._host)
+            self._copied.record(torch.cuda.current_stream(self.table.device))
+        self.rows = rows
         if a is not None:
             self.a.copy_(a.reshape(-1))
 
+    def release(self) -> None:
+        """Let go of the staged rows; call it once the replays that read
+        them have run."""
+        self.rows = ()
+
     def replay(self) -> torch.Tensor:
-        """Run the launch on the staged inputs; asynchronous on the card."""
+        """Run the launch on the staged inputs; asynchronous on the card.
+        Raises ``RuntimeError`` while no rows are staged."""
+        if not self.rows:
+            raise RuntimeError("the launch program holds no rows: stage a "
+                               "cohort before each replay")
         if self.graph is None:
             out = self._launch()
         else:
@@ -424,36 +481,53 @@ class LoweredLaunch:
         self.device = device
 
     def static_inputs(self):
-        """Fresh zeroed (x (k, m), a (k,)) buffers for this geometry."""
-        return (torch.zeros((self.k, self.m), dtype=self.dtype,
-                            device=self.device),
+        """Fresh (table (k,) int64, a (k,) ones) buffers for this
+        geometry."""
+        return (torch.zeros((self.k,), dtype=torch.int64, device=self.device),
                 torch.ones((self.k,), dtype=torch.float32,
                            device=self.device))
 
     def compile(self, inputs=None) -> LaunchProgram:
-        """The launch program over ``inputs`` (x, a) -- buffers of this
-        geometry on this device, which several programs may share (the
-        service shares them between the engines of one geometry) -- or
-        over fresh ones.  On a CUDA device: one warm-up launch on a side
-        stream (it loads the kernel library, opts the kernel in to its
-        shared memory and asks its occupancy, none of which may happen
-        during a capture), then the capture."""
+        """The launch program over ``inputs`` (table, a) -- buffers of
+        this geometry on this device, which several programs may share
+        (the service shares them between the engines of one geometry) --
+        or over fresh ones.  On a CUDA device with the kernel backend:
+        one warm-up launch on a side stream (it loads the kernel library,
+        opts the kernel in to its shared memory and asks its occupancy,
+        none of which may happen during a capture), then the capture of
+        the launch over the table, both over k copies of one zero row
+        lent for the compile alone: the program holds no rows after it."""
         engine = self.engine
-        x, a = inputs if inputs is not None else self.static_inputs()
-        if tuple(x.shape) != (self.k, self.m) or x.dtype != self.dtype \
-                or tuple(a.shape) != (self.k,) or x.device != self.device:
+        table, a = inputs if inputs is not None else self.static_inputs()
+        if tuple(table.shape) != (self.k,) or table.dtype != torch.int64 \
+                or tuple(a.shape) != (self.k,) or table.device != self.device:
             raise ValueError(
-                f"static inputs must be x ({self.k}, {self.m}) {self.dtype} "
-                f"and a ({self.k},) on {self.device}")
-        engine._record(x, self.k, self.m)
+                f"static inputs must be a table ({self.k},) int64 and a "
+                f"({self.k},) on {self.device}")
+        source = _k.RowTable(table, self.m, self.dtype)
+        engine._record(source, self.k, self.m)
         weights = a if self.weighted else None
-        program = LaunchProgram(lambda: engine.aggregate(x, weights), x, a,
-                                engine._plan(self.k, self.m, 1, self.dtype))
-        if self.device.type != "cuda":
+        kernel = self.device.type == "cuda" and engine.backend == "pallas"
+
+        def launch() -> torch.Tensor:
+            if kernel:
+                return _k.mm_aggregate_2d(source, weights,
+                                          **engine._kernel_opts())
+            return engine.aggregate(
+                torch.stack([r.reshape(-1) for r in program.rows]), weights)
+
+        program = LaunchProgram(
+            launch, table, a,
+            engine._plan(self.k, self.m, 1, self.dtype, table=kernel),
+            m=self.m, dtype=self.dtype, reads_table=kernel)
+        if not kernel:
             return program
-        warm_up(program._launch, self.device)
+        program.stage([torch.zeros(self.m, dtype=self.dtype,
+                                   device=self.device)] * self.k)
+        warm_up(program._launch, self.device)  # synchronizes
         program.graph, program.out, program.launches = capture_graph(
             program._launch)
+        program.release()
         return program
 
 
@@ -741,6 +815,34 @@ def any_nonfinite(x: torch.Tensor) -> torch.Tensor:
 # residual norms
 # ---------------------------------------------------------------------------
 
+def _check_rows(named, m: int, dtype: torch.dtype, device: torch.device,
+                reader: str, owner: str) -> None:
+    """Raise ``ValueError`` unless each (name, tensor) of ``named`` is a
+    contiguous ``dtype`` tensor of ``m`` elements on ``device``: a row a
+    kernel reads by its address (``owner`` names what sets m and the
+    device in the messages)."""
+    for name, t in named:
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{reader} reads contiguous {_k.dtype_name(dtype)} tensors; "
+                f"{name} is a {'' if t.is_contiguous() else 'strided '}"
+                f"{t.dtype} one")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, {owner} on {device}")
+        if t.numel() != m:
+            raise ValueError(f"{name} has {t.numel()} elements, {owner} {m}")
+
+
+def _write_row_table(rows: Sequence[torch.Tensor], table: torch.Tensor,
+                     host: torch.Tensor) -> None:
+    """The rows' addresses into the device table ``table``, through the
+    pinned (len(rows),) int64 host buffer ``host``: one copy on the
+    current stream, which nothing waits for (``host`` must not be
+    rewritten before it has run)."""
+    host.numpy()[:] = [r.data_ptr() for r in rows]
+    table.copy_(host, non_blocking=True)
+
+
 def residual_norms_plain(rows: Sequence[torch.Tensor],
                          center: torch.Tensor) -> torch.Tensor:
     """The norms in plain PyTorch, one row at a time:
@@ -766,26 +868,17 @@ def residual_norms(rows: Sequence[torch.Tensor],
     if not rows:
         raise ValueError("residual_norms needs at least one row")
     m, dev = center.numel(), center.device
-    for name, t in (("center", center),
-                    *((f"row {i}", r) for i, r in enumerate(rows))):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"residual_norms reads contiguous float32 tensors; {name} "
-                f"is a {'' if t.is_contiguous() else 'strided '}{t.dtype} "
-                "one")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the centre on {dev}")
-        if t.numel() != m:
-            raise ValueError(f"{name} has {t.numel()} elements, the centre "
-                             f"{m}")
+    _check_rows((("center", center),
+                 *((f"row {i}", r) for i, r in enumerate(rows))),
+                m, torch.float32, dev, "residual_norms", "the centre")
     if dev.type != "cuda":
         return residual_norms_plain(rows, center)
     n = len(rows)
     out = torch.empty(n, dtype=torch.float32, device=dev)
     lib = build.library("residual")
-    table = torch.empty(n, dtype=torch.int64, pin_memory=True)
-    table.numpy()[:] = [r.data_ptr() for r in rows]
-    table = table.to(dev, non_blocking=True)
+    table = torch.empty(n, dtype=torch.int64, device=dev)
+    _write_row_table(rows, table, torch.empty(n, dtype=torch.int64,
+                                              pin_memory=True))
     capacity = n * lib.residual_max_blocks()
     partials = torch.empty(capacity, dtype=torch.float64, device=dev)
     ptr = center.data_ptr()

@@ -7,10 +7,11 @@ records and executable cache, around the port's engine.
 buffers them FedBuff-style (admit a cohort when ``buffer >= k_min`` OR
 the admission deadline fires, whichever first), and launches the
 engine -- one launch program per cohort *geometry*, cached.  On the
-card a launch program is a CUDA graph captured once over a static
-(k, M) cohort buffer (``AggregationEngine.lower_launch``); every
-admitted cohort is copied into that buffer and the graph replays the
-Hopper kernel.  The cache is an ``ExecutableCache`` that can be
+card a launch program is a CUDA graph captured once over a static (k,)
+table of row addresses (``AggregationEngine.lower_launch``); every
+admitted cohort's payload addresses are written into that table and the
+graph replays the Hopper kernel, which reads each payload where it lies.
+The cache is an ``ExecutableCache`` that can be
 **shared across services**: the transport front hands every tenant the
 same cache, so N tenants running the same geometry capture once in
 total.  The only sanctioned captures are the first sight of each
@@ -18,10 +19,11 @@ geometry (warmup), and ``telemetry.post_warmup_misses`` counts any
 violation.
 
 What lives where: the model, every payload (moved to the service's
-device at ``submit``), the cohort buffer, the estimate, the residual
-norms of the outlier check and the trust-region clip are on the
-service's device; the cohort weights, the thresholds and every verdict
-are host-side numpy/Python, computed as the reference computes them.
+device at ``submit``), the launch programs' row tables, the estimate,
+the residual norms of the outlier check and the trust-region clip are on
+the service's device; the cohort weights, the thresholds and every
+verdict are host-side numpy/Python, computed as the reference computes
+them.
 Nothing of a payload or the model comes back to the host except
 through the journal.
 
@@ -181,12 +183,11 @@ class ExecutableCache:
 
     One instance can back many ``AggregationService`` tenants: one
     capture per distinct key across all tenants (``compiles`` counts per
-    key).  The static cohort buffers are keyed by geometry alone
-    ``(k, m, dtype, device)`` and shared by every program of that
-    geometry -- the full-cohort and the degraded engine's programs read
-    the same (k, M) buffer, which at a model's full width is most of the
-    card.  Each program counts its own replays; the service replays
-    them only through the cache.
+    key).  The static inputs -- a (k,) table of row addresses and the
+    (k,) weights -- are keyed by geometry alone ``(k, m, dtype, device)``
+    and shared by every program of that geometry (the full-cohort and
+    the degraded engine's).  Each program counts its own replays; the
+    service replays them only through the cache.
     """
 
     def __init__(self):
@@ -215,8 +216,8 @@ class ExecutableCache:
         return list(self._execs.values())
 
     def static_inputs(self, lowered: ops.LoweredLaunch) -> tuple:
-        """The (x (k, m), a (k,)) buffers of ``lowered``'s geometry,
-        allocated on first use."""
+        """The (table (k,) int64, a (k,)) buffers of ``lowered``'s
+        geometry, allocated on first use."""
         key = (lowered.k, lowered.m, str(lowered.dtype), str(lowered.device))
         if key not in self._inputs:
             self._inputs[key] = lowered.static_inputs()
@@ -280,8 +281,8 @@ def assemble_cohort(entries: List[Pending], config: ServeConfig,
     """Stack pending entries into the (k, M) cohort on the payloads'
     device (the service's: ``submit`` moves them there) beside the (k,)
     float32 weight column of ``cohort_weights``.  The service itself
-    stages the payloads straight into its launch program's static
-    buffer, without this stack."""
+    never stacks a cohort: its launch program reads each payload where
+    it lies, through a table of their addresses."""
     a = cohort_weights(entries, config, health_factors)
     x = torch.stack([p.update.payload.reshape(-1) for p in entries])
     return x, torch.from_numpy(a).to(x.device)
@@ -835,17 +836,27 @@ class AggregationService:
         def attempt():
             if self._fault_hook is not None:
                 self._fault_hook()
-            # staged on every attempt into the geometry's static buffer,
-            # which other programs of the geometry (and other tenants)
-            # share, as the reference re-stages its donated buffer
+            # the rows' addresses are written on every attempt into the
+            # geometry's static table, which other programs of the
+            # geometry (and other tenants) share, as the reference
+            # re-stages its donated buffer; the anchor rows of a degraded
+            # cohort are the model's address repeated.  The program holds
+            # the rows until the wait after the replay, which keeps every
+            # reader in order; a change that removes that wait (ROADMAP
+            # section 6 d) must keep each row alive until the replay has
+            # passed, by an event or record_stream where a row was made on
+            # another stream
             token = self.timer.begin("stage")
             program.stage(rows, weights)
             self.timer.end(token)
-            token = self.timer.begin("replay")
-            t0 = time.perf_counter()
-            out = program.replay()
-            self.timer.end(token)
-            self._sync()
+            try:
+                token = self.timer.begin("replay")
+                t0 = time.perf_counter()
+                out = program.replay()
+                self.timer.end(token)
+                self._sync()
+            finally:
+                program.release()
             wall = time.perf_counter() - t0
             self.telemetry.record_replay()
             # the graph's output is overwritten by its next replay, by

@@ -210,6 +210,7 @@ def _stub_launch_program():
     program = ops.AggregationEngine().lower_launch(K, 10,
                                                    device="cpu").compile()
     program.out = torch.zeros(10)
+    program.stage([torch.zeros(10)] * K)  # a replay reads staged rows
     return program, program.replay, (K, 10, 1), 1
 
 

@@ -61,9 +61,10 @@ def test_a_capture_defers_its_keys_to_each_replay(fake_capture):
         graph, out, keys = ops.capture_graph(step)
         assert keys == collections.Counter({KEYS[0]: 2, KEYS[4]: 1})
         assert launches.COUNTS == before  # the capture ran nothing
-        program = ops.LaunchProgram(step, torch.zeros(2, 3), torch.ones(2),
-                                    None)
+        program = ops.LaunchProgram(step, torch.zeros(2, dtype=torch.int64),
+                                    torch.ones(2), None, m=3)
         program.graph, program.out, program.launches = graph, out, keys
+        program.stage([torch.zeros(3)] * 2)
         for _ in range(3):
             assert program.replay() is out
         assert program.replays == 3

@@ -269,6 +269,91 @@ def test_launch_program_equals_the_eager_aggregate(backend):
         program.stage(list(x)[:3], a)
 
 
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("k", [8, 128])
+def test_a_program_staged_by_rows_gives_the_estimate_of_its_tensor(backend,
+                                                                   k):
+    """Rows that lie apart -- tensors of their own and views into a wider
+    buffer -- staged one by one give the estimate the (k, m) tensor of
+    the same values gives (the single pass at 8 rows, the two-pass
+    kernel's plan at 128), and the program holds those rows."""
+    rng = np.random.default_rng(k)
+    m = 37
+    x = torch.from_numpy(rng.normal(size=(k, m)).astype(np.float32))
+    x[-(k // 8):] += 1000.0
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, size=k).astype(np.float32))
+    program = ops.AggregationEngine(backend=backend).lower_launch(
+        k, m, device="cpu").compile()
+    want = program(x, a).clone()
+    wide = torch.zeros((k, m + 5))
+    wide[:, 2:2 + m] = x
+    rows = [x[i].clone() if i % 2 else wide[i, 2:2 + m] for i in range(k)]
+    program.stage(rows, a)
+    assert program.rows == tuple(rows)
+    assert torch.equal(program.replay(), want)
+
+
+def _refused_stage(case, k, m):
+    rows = [torch.full((m,), float(i)) for i in range(k)]
+    if case == "count":
+        return rows[:-1], f"takes {k} rows"
+    if case == "length":
+        rows[1] = torch.zeros(m + 1)
+        return rows, f"{m + 1} elements"
+    if case == "dtype":
+        rows[2] = torch.zeros(m, dtype=torch.float64)
+        return rows, "float32"
+    if case == "device":
+        rows[0] = rows[0].to("meta")
+        return rows, "is on meta"
+    if case == "strided":
+        rows[3] = torch.zeros(2 * m)[::2]
+        return rows, "strided"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["count", "length", "dtype", "device",
+                                  "strided"])
+def test_stage_refuses_rows_the_kernel_cannot_read(case):
+    """A row the kernel could not read in place (another length, dtype or
+    device, a strided view) or a wrong row count raises before anything
+    is staged: the held rows stay the last cohort's."""
+    k, m = 4, 10
+    program = ops.AggregationEngine().lower_launch(k, m,
+                                                   device="cpu").compile()
+    good = [torch.randn(m) for _ in range(k)]
+    program.stage(good)
+    rows, match = _refused_stage(case, k, m)
+    with pytest.raises(ValueError, match=match):
+        program.stage(rows)
+    assert program.rows == tuple(good)
+
+
+@pytest.mark.parametrize("case", ["anchor rows", "a Byzantine row twice"])
+def test_repeated_addresses_give_the_stacked_result(case):
+    """One tensor staged in several slots -- a degraded cohort's anchor
+    rows (the model, repeated) or a Byzantine payload that two members
+    sent -- is one address repeated among the staged rows (in the table,
+    on the card), and the estimate is the stacked cohort's."""
+    g = torch.Generator().manual_seed(3)
+    k, m = 8, 29
+    rows = [torch.randn(m, generator=g) for _ in range(k)]
+    a = torch.rand(k, generator=g) + 0.5
+    if case == "anchor rows":
+        model = torch.randn(m, generator=g)
+        rows[5:] = [model] * 3
+        a[5:] = a[:5].sum() / 3
+    else:
+        rows[6] = rows[7] = rows[0] + 1000.0
+    engine = ops.AggregationEngine()
+    program = engine.lower_launch(k, m, device="cpu").compile()
+    program.stage(rows, a)
+    addresses = {r.data_ptr() for r in program.rows}
+    assert len(addresses) == (6 if case == "anchor rows" else 7)
+    assert torch.equal(program.replay(),
+                       engine.aggregate(torch.stack(rows), a))
+
+
 def test_a_128_agent_cohort_lowers_to_the_two_pass_kernel():
     """The service's launch program for a cohort of 128 plans the
     two-pass kernel in one K block (the serve-cohort128 launch, here over
@@ -291,16 +376,46 @@ def test_a_128_agent_cohort_lowers_to_the_two_pass_kernel():
                                atol=1e-5, rtol=1e-6)
 
 
+def test_a_program_holds_its_rows_from_stage_to_release():
+    """A compiled program holds no rows and refuses a replay until a
+    cohort is staged; it holds that cohort's rows until ``release`` and
+    refuses a replay after it.  The service releases them after each
+    commit's wait, so no cohort outlives its commit in the program."""
+    k, m = 4, 10
+    program = ops.AggregationEngine().lower_launch(k, m,
+                                                   device="cpu").compile()
+    assert program.rows == ()
+    with pytest.raises(RuntimeError, match="holds no rows"):
+        program.replay()
+    rows = [torch.randn(m) for _ in range(k)]
+    program.stage(rows)
+    program.replay()
+    assert program.rows == tuple(rows)
+    program.release()
+    assert program.rows == ()
+    with pytest.raises(RuntimeError, match="holds no rows"):
+        program.replay()
+    svc, _ = make_service(backend="pallas")
+    fill_full_cohort(svc, value=0.5)
+    (served,) = svc.exec_cache.programs()
+    assert svc.round == 1 and served.replays == 1 and served.rows == ()
+
+
 def test_lower_launch_shares_given_static_inputs_and_checks_them():
+    """The static inputs are a (k,) int64 table of row addresses and the
+    (k,) weights, shared by the programs given them; a (k, m) cohort
+    buffer, or a table of another k, is refused."""
     engine = ops.AggregationEngine()
     lowered = engine.lower_launch(4, 10, device="cpu")
-    x, a = lowered.static_inputs()
-    p1 = lowered.compile((x, a))
+    table, a = lowered.static_inputs()
+    assert table.dtype == torch.int64 and tuple(table.shape) == (4,)
+    p1 = lowered.compile((table, a))
     p2 = ops.AggregationEngine(c=2.0).lower_launch(
-        4, 10, device="cpu").compile((x, a))
-    assert p1.x is p2.x and p1.a is p2.a
-    with pytest.raises(ValueError, match="static inputs"):
-        lowered.compile((torch.zeros(4, 11), a))
+        4, 10, device="cpu").compile((table, a))
+    assert p1.table is p2.table and p1.a is p2.a
+    for bad in (torch.zeros(4, 10), torch.zeros(5, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="static inputs"):
+            lowered.compile((bad, a))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.lower_launch(4, 10)
 
