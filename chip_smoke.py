@@ -295,6 +295,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
               experiments/bench_torch/ (every audit ok).  Each (variant, K,
               M, N) a step launched gets a kernels-line entry (10 launches
               in its event pair).
+ 27 coarse_keys  the weighted group layout of 16 rows a lane, which sorts
+              on 32-bit coarse keys that carry the row and sorts a warp's
+              tile again on (key, row) pairs where its check fails, at
+              K = 128 on the serve cohort's mix (112 N(0, 1) rows, 16
+              copies of row 0 + 1000), on narrow data (1000 + N(0,
+              1e-3)) and on clustered columns (rows at -1000 and 1000,
+              the rest 1 + j ulp, j < 100), made on the card at one
+              decoder layer's width: at M = 2^20 (a strided view, and a
+              row table of its rows) the launch through the table equals
+              the (x, ld) launch bit for bit and lies within the parity
+              tolerance of the plain version; at both widths the share
+              of warp-tiles that took the pairs (mm_two_pass_exact_tiles:
+              a few percent on the mix, none on narrow data, all on the
+              clustered columns) and, at the layer, the table launch's
+              ms (20 back-to-back launches in one event pair).
 
 The service's launches, the tree program's and the scenario runs' are
 CUDA-graph replays: the kernel wrappers count the warm-up launch before
@@ -354,7 +369,7 @@ PHASES = ("build", "contracts", "parity", "paper", "cohort", "width",
           "serve_width", "serve_cohort", "lm_train", "lm_serve", "ssm_train",
           "ssm_serve", "hybrid_train", "hybrid_serve", "audio_train",
           "audio_serve", "sharded", "fsdp_train", "fsdp_serve", "dryrun",
-          "bench")
+          "bench", "coarse_keys")
 # torch.profiler windows traced for one kernels-line entry before its
 # device time is reported as missing (Smoke.profiler_ms)
 PROFILER_WINDOWS = 12
@@ -1793,6 +1808,66 @@ class Smoke:
               "block_k": plan.block_k, "smem_bytes": plan.smem_bytes,
               "blocks": mk.two_pass_blocks(plan, k, weighted=False),
               "max_memory_allocated": peak})
+
+    def coarse_keys(self):
+        torch = self.torch
+        from repro_torch.core import location
+        from repro_torch.kernels import mm_aggregate as mk
+        k, width, m = 128, layer_width(), 1 << 20
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+        shares = {"cohort": (0.005, 0.06), "narrow": (0.0, 0.0),
+                  "clustered": (1.0, 1.0)}
+        for kind, (lo, hi) in shares.items():
+            g = torch.Generator(device=self.dev).manual_seed(32)
+            x = torch.randn((k, width), generator=g, device=self.dev)
+            if kind == "cohort":
+                x[k - k // 8:] = x[0] + 1000.0
+            elif kind == "narrow":
+                x.mul_(1e-3).add_(1000.0)
+            else:
+                x.copy_(1.0 + torch.randint(0, 100, (k, width), generator=g,
+                                            device=self.dev).float()
+                        * 2.0 ** -23)
+                x[0], x[1] = -1000.0, 1000.0
+            a = torch.rand(k, generator=g, device=self.dev) + 0.5
+            aw = location.normalize_weights(a.reshape(k, 1),
+                                            dtype=torch.float32)
+            row = {"phase": "coarse_keys", "kind": kind, "k": k}
+            for cols in (m, width):
+                xs = x[:, :cols]
+                table = mk.RowTable(torch.tensor(
+                    [r.data_ptr() for r in xs], dtype=torch.int64,
+                    device=self.dev), cols, xs.dtype)
+                plan = mk.launch_plan(k, cols, 1, table=True)
+                assert plan.num_k_blocks == 1 and \
+                    mk.two_pass_rows(plan.block_k) == 16, plan
+                lanes = mk.two_pass_lanes(plan.block_k)
+                warp_tiles = -(-cols // plan.block_m) * \
+                    max(1, plan.block_m * lanes // 32)
+                mk.two_pass_exact_tiles()         # reset the count
+                got = self.not_counted(lambda: mk.two_pass(table, aw, plan))
+                share = mk.two_pass_exact_tiles() / warp_tiles
+                row[f"exact_share_{cols}"] = share
+                assert lo <= share <= hi, (kind, cols, share)
+                if cols == m:
+                    eager = self.not_counted(lambda: mk.two_pass(xs, aw, plan))
+                    assert torch.equal(got, eager), kind
+                    xp, ap = mk._pad_inputs(xs.contiguous(), aw, plan=plan)
+                    want = mk.mm_two_pass_plain(xp, ap, k=k,
+                                                block_k=plan.block_k)
+                    row["max_abs_err"] = float((got - want).abs().max())
+                    row["tol"] = 1e-5 * max(1.0, float(xs.abs().max()))
+                    assert row["max_abs_err"] <= row["tol"], row
+                    del xp, ap, want, eager
+                else:
+                    row["ms"], _ = self.kernel_ms(
+                        lambda: self.not_counted(
+                            lambda: mk.two_pass(table, aw, plan)),
+                        launches=20)
+                    row["block_m"] = plan.block_m
+                del got
+            emit(row)
+            del x
 
     # -- the autotuner and the entry points --------------------------------
 

@@ -49,6 +49,7 @@ _SIGNATURES = {
         "mm_two_pass_blocks": (_I, [_I, _I, _I64, _I, _I, _I, _I, _I, _P]),
         "mm_two_pass_config": (_I, [_I, _I, _I64, _I, _I, _I, _I, _I, _P, _P,
                                     _I]),
+        "mm_two_pass_exact_tiles": (_I, [_P]),
     },
     "finite": {
         "finite_check_launch": (_I, [_P, _I, _I64, _I64, _I64, _P, _P, _I]),

@@ -33,10 +33,25 @@
 //     32 / LANES neighbouring columns).  The group sorts them with the
 //     bitonic network below: of the log2(B)(log2(B)+1)/2 stages only those
 //     at distances >= R cross lanes (6 of 28 at bk = 128, against 15 when
-//     a warp sorts a column at 4 rows a lane).  Weighted columns sort
-//     64-bit (key, row) pairs (the plain version's stable argsort) at one
-//     comparison a compare-exchange, unweighted ones 32-bit keys by min
-//     and max.
+//     a warp sorts a column at 4 rows a lane).  Unweighted columns sort
+//     32-bit keys by min and max.  Weighted columns need the plain
+//     version's stable argsort, the (key, row) order:
+//       - R = 16 (bk <= 128): 32-bit coarse keys, by min and max
+//         (sort_coarse): the key relative to the column's least, scaled
+//         to fill 32 bits, with the row in its low log2(B) bits.  The
+//         exact values are gathered back by row from a copy of the rows
+//         in the strip (re-reading them from HBM instead made the serve
+//         cohort's launch 20% slower on an H100), and the order is
+//         checked: where a full key falls from one position to the next
+//         (two values share their coarse bits), the warp sorts its tile
+//         again on pairs.  On an H100 2.1% of the serve cohort's
+//         warp-tiles take that path (112 N(0, 1) values and 16 copies of
+//         one a column), and none of narrow data (1000 + N(0, 1e-3)),
+//         which every tile took before the relative scale.
+//       - R = 32 (bk 256 / 512): 64-bit (key, row) pairs at one comparison
+//         a compare-exchange.  Coarse keys would drop 8-9 bits: a numpy
+//         model of the cohort's mix fails 4.8% of columns at K = 256 and
+//         33% at 512, against 0.55% at 128.
 //   * The sorted values (and, weighted, their rows) go to the group's
 //     slots of the block's strips in shared memory.  The work that is
 //     serial or a reduction per column stays in the group, so no barrier
@@ -50,25 +65,34 @@
 //   * IRLS: each lane sums its R rows in registers in reciprocal form, and
 //     log2(LANES) butterfly steps of shuffles (3 at bk = 128) leave the
 //     group's sum in each of its lanes.  Weighted rows are the sorted
-//     values with their gathered weights; unweighted rows are the rows as
-//     loaded, with their own weights.
+//     values with their gathered weights (by a row strip in shared memory:
+//     R = 16, each thread's positions' rows packed four to a word; R = 32,
+//     a uint16 row a position); unweighted rows are the rows as loaded,
+//     with their own weights.
 //   * A block holds `cols` columns (a power of two, at most 256 / LANES,
 //     from M as the launch plan picks it), cols LANES threads (at least
 //     one warp: the groups past `cols` hold no column).  Shared memory:
 //     the (nc, bk) weight slice, nc masses and the strips, laid out for
 //     the widest block so their offsets are constants: 6 R 256 bytes,
-//     24.5 KB at bk = 128, 48.5 KB above.  Blocks of 16 rows a lane are
-//     held to 85 registers, three 256-thread blocks (24 warps) an SM;
-//     those of 32 to 128, two (the weighted 512-row ones take one).
+//     24.5 KB at bk = 128, 48.5 KB above (the row strip is carved for
+//     every instantiation; only weighted ones write it).  Blocks of 16
+//     rows a lane are held to 85 registers, three 256-thread blocks (24
+//     warps) an SM; those of 32 to 128, two (the weighted 512-row ones
+//     take one).
 //   * Budget a column at (K, N) = (128, 1), weighted, in warp
-//     instructions: the sort ~430 (22 in-lane stages of 8 compare-
-//     exchanges of 6 instructions and 6 cross-lane stages of 16 elements
-//     of 7, over 4 columns a warp), IRLS ~310 (10 steps of 128 rows of 7
-//     instructions, plus 6 shuffles a step), the cumulative sums ~35 and
-//     the MAD ~50, loads, strips and gathers ~60: ~880, against ~1,800 for
-//     the warp layout.  The sort's compare-exchanges run on the half-rate
-//     integer pipe, so the sort, not IRLS, sets the pace: ~450 integer
-//     instructions a column bound the launch at ~15 ms.
+//     instructions over 4 columns a warp: the coarse-key sort ~160 (22
+//     in-lane stages of 8 compare-exchanges of 2 instructions and 6
+//     cross-lane stages of 16 elements of 3), the range, row copy, gather
+//     and check ~70, IRLS ~310 (10 steps of 128 rows of 7 instructions,
+//     plus 6 shuffles a step), the cumulative sums ~35 and the MAD ~50,
+//     loads and strips ~40: ~670, against ~880 with 64-bit pairs (~430
+//     for the sort: compare-exchanges of 6 instructions, cross-lane
+//     elements of 7) and ~400 unweighted.  On an H100 the serve cohort's
+//     launch (128, 15,730,944, 1) takes 21.5 ms, against 29.1 with pairs
+//     and 16.0 unweighted.  IRLS's f32 work now outweighs the sort's
+//     integer work; the rest of the weighted path's extra cost is the
+//     copy, gather and check and the crossing's serial sum over the
+//     group's lanes (group_crossing).
 //
 // Several K blocks (kb > 1): the warp layout, mm_two_pass<bk / 32, W, T,
 // 32> (RPL = 1 for bk <= 32), one warp a column, as the first redesign
@@ -713,6 +737,119 @@ __device__ __forceinline__ int strip_at(int e, int c) {
   return e * W + ((c + (e / R) * G) & (W - 1));
 }
 
+// Slot of row r of column c while the strip holds a weighted column's
+// rows before its sort: the slot of position (r mod LANES) R + r / LANES,
+// where the lane that loaded the row keeps it.  A column keeps its own
+// slots of every strip row, as in the sorted layout, so a group's copy
+// never meets the strips of groups in other warps.
+template <int R, int LANES>
+__device__ __forceinline__ int row_at(int r, int c) {
+  constexpr int W = kGroupThreads / LANES, G = 32 / LANES;
+  const int li = r & (LANES - 1);
+  return (li * R + r / LANES) * W + ((c + li * G) & (W - 1));
+}
+
+// Warp-tiles of the coarse-key sort (sort_coarse) that took the exact
+// (key, row) sort, on this device, since mm_two_pass_exact_tiles last
+// read it.
+__device__ unsigned long long exact_tiles = 0;
+
+// A weighted column of the group layout with 16 rows a lane (B = 16
+// LANES <= 128 rows), sorted into the plain version's stable (key, row)
+// order on 32-bit coarse keys, which the group's network sorts by min and
+// max.  A row's coarse key is its sort_key less the column's least
+// (aligned down to a multiple of B, so a wide column keeps the buckets of
+// the keys themselves, +0 apart from -0), shifted left until the column's
+// range fills 32 bits, with its low log2 B bits replaced by the row: an
+// order-preserving map, exact where the range spans fewer than 2^(32 -
+// log2 B) keys (narrow columns).  Sentinels (rows >= k) are 0xffffffff,
+// above every valid key: where any exists, k - 1 < B - 1.  The exact
+// values are gathered back by row from a copy of the rows in the strip;
+// the coarse order is the exact one exactly where their keys never fall
+// from one valid position to the next (equal keys are ordered by row
+// already).  A warp whose group fails that check sorts its tile again on
+// (key, row) pairs from the copy, one branch for the warp.  Leaves the
+// sorted values in v (0 past k) and position li R + q's row in byte q mod
+// 4 of rb_s[(q / 4) 256 + threadIdx.x], this thread's words of the row
+// strip (in registers, the rows spilled the n loop's IRLS).
+template <int R, int LANES>
+__device__ __forceinline__ void sort_coarse(float (&v)[R], float* xs_s,
+                                            uint32_t* rb_s, const Params& p,
+                                            bool mine, int base, int slot,
+                                            int lane, int li) {
+  constexpr int W = kGroupThreads / LANES;
+  constexpr uint32_t B = R * LANES;
+  uint32_t ck[R];
+  uint32_t lo = 0xffffffffu, hi = 0u;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if (mine) xs_s[base + q * W] = v[q];  // row_at(q LANES + li, slot)
+    ck[q] = mm::sort_key(v[q]);
+    if (q * LANES + li < p.k) {
+      lo = min(lo, ck[q]);
+      hi = max(hi, ck[q]);
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(kFull, lo, off));
+    hi = max(hi, __shfl_xor_sync(kFull, hi, off));
+  }
+  lo &= ~(B - 1);
+  const int sh = min(31, __clz(hi - lo));
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int r = q * LANES + li;
+    ck[q] = r < p.k ? (((ck[q] - lo) << sh) & ~(B - 1)) | (uint32_t)r
+                    : 0xffffffffu;
+  }
+  __syncwarp();  // the copy is whole before any lane gathers from it
+  warp_sort<R, LANES>(ck, lane);
+  bool bad = false;
+  uint32_t first = 0, last = 0, packed = 0;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const bool valid = li * R + q < p.k;
+    const uint32_t r = ck[q] & (B - 1);
+    v[q] = valid ? xs_s[row_at<R, LANES>(r, slot)] : 0.0f;
+    packed |= r << (8 * (q % 4));
+    if (q % 4 == 3) {
+      rb_s[(q / 4) * kGroupThreads + threadIdx.x] = packed;
+      packed = 0;
+    }
+    const uint32_t key = mm::sort_key(v[q]);
+    if (q == 0) first = key;
+    else if (valid) bad |= last > key;
+    last = key;
+  }
+  if constexpr (LANES > 1) {  // against the last key of the lane before
+    const uint32_t before = __shfl_up_sync(kFull, last, 1);
+    if (li > 0 && li * R < p.k) bad |= before > first;
+  }
+  if (__any_sync(kFull, mine && bad)) {
+    if (lane == 0) atomicAdd(&exact_tiles, 1ull);
+    uint64_t s[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int r = q * LANES + li;
+      s[q] = r < p.k ? ((uint64_t)mm::sort_key(xs_s[base + q * W]) << 32) |
+                           (uint32_t)r
+                     : ~0ull;  // sentinel: after every row, NaN included
+    }
+    warp_sort<R, LANES>(s, lane);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      v[q] = li * R + q < p.k ? key_value((uint32_t)(s[q] >> 32)) : 0.0f;
+      packed |= ((uint32_t)s[q] & (B - 1)) << (8 * (q % 4));
+      if (q % 4 == 3) {
+        rb_s[(q / 4) * kGroupThreads + threadIdx.x] = packed;
+        packed = 0;
+      }
+    }
+  }
+  __syncwarp();  // every gather from the copy is done before it is rewritten
+}
+
 // Rank median of |x - med| over the k sorted values of the column in
 // slot c.  They fall over the positions [0, s) whose values are <= med
 // and rise over [s, k), so with A_i = |x[s - 1 - i] - med| and B_j =
@@ -827,6 +964,7 @@ __device__ __forceinline__ void group_columns(const T* __restrict__ x,
   float* ms = ws + (size_t)p.nc * k_pad;                        // (nc)
   float* xs_s = ms + p.nc;                                      // (R LANES, W)
   uint16_t* rw_s = reinterpret_cast<uint16_t*>(xs_s + R * LANES * W);
+  uint32_t* rb_s = reinterpret_cast<uint32_t*>(rw_s);  // R = 16: 4 a thread
 
   const int lane = threadIdx.x & 31, li = lane & (LANES - 1);
   const int col = threadIdx.x / LANES;  // this group's column of the tile
@@ -851,7 +989,12 @@ __device__ __forceinline__ void group_columns(const T* __restrict__ x,
     float v[R];  // unweighted: the rows as loaded; weighted: then sorted
     load_group<R, LANES, WEIGHTED>(v, x, p, smem, real, mc, li);
     __syncwarp();  // the last tile's readers of the strips are done
-    if constexpr (WEIGHTED) {
+    if constexpr (WEIGHTED && R == 16) {
+      sort_coarse<R, LANES>(v, xs_s, rb_s, p, mine, base, slot, lane, li);
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (mine && li * R + q < p.k) xs_s[base + q * W] = v[q];
+    } else if constexpr (WEIGHTED) {
       uint64_t s[R];
 #pragma unroll
       for (int q = 0; q < R; ++q) {
@@ -894,7 +1037,12 @@ __device__ __forceinline__ void group_columns(const T* __restrict__ x,
         float wv[R];  // weighted: the sorted positions'; else the rows'
 #pragma unroll
         for (int q = 0; q < R; ++q) {
-          if (WEIGHTED)
+          if constexpr (WEIGHTED && R == 16)
+            wv[q] = li * R + q < p.k
+                        ? wn[(rb_s[(q / 4) * kGroupThreads + threadIdx.x] >>
+                              (8 * (q % 4))) & 0xffu]
+                        : 0.0f;
+          else if constexpr (WEIGHTED)
             wv[q] = li * R + q < p.k ? wn[rw_s[base + q * W]] : 0.0f;
           else
             wv[q] = q * LANES + li < p.k ? wn[q * LANES + li] : 0.0f;
@@ -1193,6 +1341,22 @@ int mm_two_pass_config(int dtype, int k, int64_t m, int n, int bk, int nc,
   out[3] = q.per_sm;
   out[4] = q.sms;
   return err;
+}
+
+// The warp-tiles of weighted one-K-block launches of 16 rows a lane (K
+// blocks of at most 128 rows) that took the exact (key, row) sort on the
+// current device since the last call, in *tiles; the count is then reset.
+// Copies through the legacy default stream, so it waits for the launches
+// before it.  Returns a cudaError_t.
+int mm_two_pass_exact_tiles(int64_t* tiles) {
+  if (tiles == nullptr) return (int)cudaErrorInvalidValue;
+  unsigned long long n = 0;
+  const unsigned long long zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(&n, exact_tiles, sizeof(n));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(exact_tiles, &zero, sizeof(zero));
+  *tiles = (int64_t)n;
+  return (int)err;
 }
 
 }  // extern "C"

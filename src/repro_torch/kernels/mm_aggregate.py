@@ -918,6 +918,21 @@ def two_pass_blocks(plan: LaunchPlan, k: int, dtype=torch.float32,
     return blocks.value
 
 
+def two_pass_exact_tiles() -> int:
+    """Warp-tiles of the weighted group layout with 16 rows a lane (one K
+    block of at most 128 rows) whose columns did not sort exactly on
+    coarse keys and took the (key, row) sort, on the current card since
+    the last call, which resets the count.  A launch of ``block_m``
+    columns over M holds ceil(M / block_m) x max(1, block_m x lanes / 32)
+    warp-tiles.  Waits for the launches before it."""
+    tiles = ctypes.c_int64(0)
+    err = build.library("mm_two_pass").mm_two_pass_exact_tiles(
+        ctypes.byref(tiles))
+    if err:
+        raise RuntimeError(f"mm_two_pass_exact_tiles failed: cudaError {err}")
+    return tiles.value
+
+
 def _launch(x: Rows, a: torch.Tensor, *, weighted: bool,
             num_iters: int, c: float, block_m: Optional[int],
             block_k: Optional[int], path: Optional[str] = None,

@@ -9,9 +9,11 @@ MAD merges |x - med| with one bitonic merge, the combine sorts (value,
 block) pairs (one a lane for KB <= 32, else in a shared-memory strip),
 and IRLS runs in reciprocal form with each lane's partial sums reduced
 by a butterfly.  With one K block a group of L lanes owns a column, R =
-16 rows a lane up to bk = 256 and 32 above (L = max(1, bk / R)): lane li
+16 rows a lane up to bk = 128 and 32 above (L = max(1, bk / R)): lane li
 holds rows q * L + li (q < R), the group's network sorts them into
-positions e = li * R + q, the group sums the
+positions e = li * R + q (weighted, R = 16: on 32-bit coarse keys that
+carry the row, checked, and on (key, row) pairs where the check fails;
+R = 32: on the pairs), the group sums the
 weights in sorted order lane after lane (the half mass), then each lane
 again from its carry-in to find the crossing, selects the MAD from the
 two sorted runs of |x - med| by a binary search, and IRLS sums each
@@ -317,29 +319,122 @@ def mad_select(xs, med):
     return (F32(0.5) * (d_lo + d_hi)).astype(F32)
 
 
+def group_slots(lanes, rows):
+    """(L, R): the row lane li holds at q, q L + li."""
+    return np.arange(rows)[None, :] * lanes + np.arange(lanes)[:, None]
+
+
+def group_positions(lanes, rows):
+    """(L, R): the sorted position lane li holds at q, li R + q."""
+    return np.arange(lanes)[:, None] * rows + np.arange(rows)[None, :]
+
+
+def load_group(x, block_k):
+    """x (K, M) as the group layout loads it: (M, L, R), row q L + li of
+    each column at [:, li, q], 0 past row K."""
+    k = x.shape[0]
+    rows, lanes = TK.two_pass_rows(block_k), TK.two_pass_lanes(block_k)
+    slot = group_slots(lanes, rows)
+    return np.where((slot < k)[None],
+                    np.moveaxis(x[np.where(slot < k, slot, 0)], 2, 0),
+                    F32(0))
+
+
+def pair_sort(v, k):
+    """A weighted group's (key, row) network on 64-bit pairs: (M, L, R)
+    rows as loaded -> the sorted values and their rows (0 past k)."""
+    lanes, rows = v.shape[1:]
+    slot = group_slots(lanes, rows)
+    keys = np.where((slot < k)[None], (sort_key(v).astype(np.uint64)
+                                       << np.uint64(32))
+                    | slot.astype(np.uint64)[None], ~np.uint64(0))
+    keys = warp_sort(keys)
+    pos_valid = (group_positions(lanes, rows) < k)[None]
+    return (np.where(pos_valid, key_value(keys >> np.uint64(32)), F32(0)),
+            np.where(pos_valid,
+                     (keys & np.uint64(0xFFFFFFFF)).astype(np.int64), 0))
+
+
+def clz32(x):
+    """Leading zero bits of uint32 values (32 for 0)."""
+    x = x.astype(np.uint64)
+    return 32 - sum(((x >> np.uint64(j)) > 0).astype(np.int64)
+                    for j in range(32))
+
+
+def coarse_parts(v, k):
+    """The kernel's ``sort_coarse`` up to its branch, for (M, L, R) rows as
+    loaded: each row's 32-bit coarse key (its sort_key less the column's
+    least, that aligned down to a multiple of B, shifted left by the
+    leading zeros of the range, its low log2(B) bits replaced by the row;
+    0xffffffff past k), sorted by the group's network; each position's
+    row read from the low bits and its value gathered by row; and, per
+    column, whether the check fails: a valid position's full key below
+    the one before it, in a lane or (by the shuffle) across the boundary
+    from lane li - 1 to li.  Returns (values, rows, fails), values and
+    rows 0 past k."""
+    m, lanes, rows = v.shape
+    b = lanes * rows
+    slot = group_slots(lanes, rows)
+    valid = (slot < k)[None]
+    key = sort_key(v)
+    lo = np.where(valid, key, np.uint32(0xFFFFFFFF)).min((1, 2)) \
+        & np.uint32(2 ** 32 - b)
+    hi = np.where(valid, key, np.uint32(0)).max((1, 2))
+    sh = np.minimum(31, clz32(hi - lo)).astype(np.uint64)
+    rel = (((key - lo[:, None, None]).astype(np.uint64) << sh[:, None, None])
+           & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    ck = np.where(valid, (rel & np.uint32(2 ** 32 - b))
+                  | slot.astype(np.uint32)[None], np.uint32(0xFFFFFFFF))
+    ck = warp_sort(ck)
+    pos_valid = (group_positions(lanes, rows) < k)[None]
+    rw = np.where(pos_valid, (ck & np.uint32(b - 1)).astype(np.int64), 0)
+    xs = np.where(pos_valid, v[np.arange(m)[:, None, None], rw % lanes,
+                               rw // lanes], F32(0))
+    key = sort_key(xs)
+    fails = ((key[:, :, :-1] > key[:, :, 1:])
+             & pos_valid[:, :, 1:]).any((1, 2))
+    if lanes > 1:
+        li = np.arange(1, lanes)
+        fails |= ((key[:, :-1, -1] > key[:, 1:, 0])
+                  & (li * rows < k)[None]).any(1)
+    return xs, rw, fails
+
+
+def coarse_sort(v, k):
+    """The kernel's ``sort_coarse``: the coarse order where every column
+    of a warp (32 / L neighbouring columns) passes the check, else the
+    (key, row) pairs for the warp's columns.  Returns (values, rows,
+    the warps that took the pairs)."""
+    m, lanes, _ = v.shape
+    xs, rw, fails = coarse_parts(v, k)
+    g = 32 // lanes
+    warp_fails = np.zeros(-(-m // g) * g, bool)
+    warp_fails[:m] = fails
+    warp_fails = warp_fails.reshape(-1, g).any(1)
+    exact = np.repeat(warp_fails, g)[:m]
+    if exact.any():
+        xp, rp = pair_sort(v[exact], k)
+        xs[exact], rw[exact] = xp, rp
+    return xs, rw, warp_fails
+
+
 def group_two_pass(x, a, *, block_k, weighted, num_iters=10,
                    c=mestimators.TUKEY_C95):
     """The kernel's group layout (one K block, k <= block_k) for x (K, M)
-    and normalized a (K, N)."""
+    and normalized a (K, N): weighted columns of 16 rows a lane sort on
+    coarse keys (``coarse_sort``), those of 32 on (key, row) pairs."""
     k, m = x.shape
     n = a.shape[1]
     rows, lanes = TK.two_pass_rows(block_k), TK.two_pass_lanes(block_k)
     li = np.arange(lanes)
-    slot = np.arange(rows)[None, :] * lanes + li[:, None]    # (L, R) rows
+    slot = group_slots(lanes, rows)                            # (L, R) rows
     valid = slot < k
-    v = np.where(valid[None], np.moveaxis(x[np.where(valid, slot, 0)], 2, 0),
-                 F32(0))                                       # (M, L, R)
-    pos_valid = (li[:, None] * rows + np.arange(rows)[None]) < k
+    v = load_group(x, block_k)                                 # (M, L, R)
+    pos_valid = group_positions(lanes, rows) < k
     cols = np.arange(m)
     if weighted:
-        keys = np.where(valid[None], (sort_key(v).astype(np.uint64)
-                                      << np.uint64(32))
-                        | slot.astype(np.uint64)[None], ~np.uint64(0))
-        keys = warp_sort(keys)
-        xs = np.where(pos_valid[None], key_value(keys >> np.uint64(32)),
-                      F32(0))
-        rw = np.where(pos_valid[None],
-                      (keys & np.uint64(0xFFFFFFFF)).astype(np.int64), 0)
+        xs, rw = coarse_sort(v, k)[:2] if rows == 16 else pair_sort(v, k)
         rw_sorted = positions(rw)[:, :k]
     else:
         keys = warp_sort(np.where(valid[None], sort_key(v),
@@ -630,3 +725,118 @@ def test_tile_swizzle_is_a_bijection_without_bank_conflicts(cols):
         e = np.arange(e0, e0 + 32)
         banks = tile_at(e // cols, e % cols, cols) % 32
         assert len(set(banks.tolist())) == 32
+
+
+def row_at(r, c, rows, lanes):
+    """The group layout's strip slot of row r, column c, while it holds a
+    weighted column's rows before the coarse-key sort: the slot of
+    position (r mod L) R + r / L, where the lane that loaded it keeps it."""
+    return strip_at((r % lanes) * rows + r // lanes, c, rows, lanes)
+
+
+@pytest.mark.parametrize("bk", [16, 32, 64, 128])
+def test_row_copy_keeps_each_column_in_its_own_slots(bk):
+    """The copy of a coarse-key sort's rows (16 rows a lane): every (row,
+    column) of the widest block has its own slot, each column the very
+    slots the sorted layout gives it (so a group's copy never lands in a
+    slot that a group of another warp reads unsynchronised), and a warp
+    storing row q L + li of each of its 32 / L columns hits 32 distinct
+    banks."""
+    rows, lanes = TK.two_pass_rows(bk), TK.two_pass_lanes(bk)
+    w, g = 256 // lanes, 32 // lanes
+    r, c = np.meshgrid(np.arange(rows * lanes), np.arange(w), indexing="ij")
+    slots = row_at(r, c, rows, lanes)
+    assert sorted(slots.ravel().tolist()) == list(range(rows * lanes * w))
+    np.testing.assert_array_equal(np.sort(slots, 0),
+                                  np.sort(strip_at(r, c, rows, lanes), 0))
+    lane = np.arange(32)
+    for warp in range(256 // 32):
+        col, li = warp * g + lane // lanes, lane % lanes
+        for q in range(rows):
+            banks = row_at(q * lanes + li, col, rows, lanes) % 32
+            assert len(set(banks.tolist())) == 32
+
+
+def coarse_values(k, m, kind, seed):
+    """(K, M) f32 columns for the coarse-key sort: cohort (the serve
+    cohort's mix, K // 8 copies of one value beside N(0, 1) rows), bucket
+    (near ties: keys in one or two neighbouring 128-key buckets, exact
+    ties among them), narrow (1000 + N(0, 1e-3)), clustered (rows 0 and
+    1 at -1000 and 1000, so the range is wide, the rest 1 + j ulp, j <
+    100: one bucket, out of row order), specials (+-0, +-inf and NaNs of
+    either sign beside N(0, 1)) and top (NaNs whose keys lie at and just
+    below 0xffffffff, the sentinel, and the lowest key, beside N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(k, m)).astype(F32)
+    if kind == "cohort":
+        x[k - k // 8:] = x[0] + F32(1000.0)
+    elif kind == "bucket":
+        base = sort_key(x[0]) & np.uint32(2 ** 32 - 128)
+        keys = base + np.uint32(128) * rng.integers(0, 2, size=(k, m)) \
+            + rng.integers(0, 40, size=(k, m))
+        x = key_value(keys.astype(np.uint32))
+    elif kind == "narrow":
+        x = (F32(1000.0) + F32(1e-3) * x).astype(F32)
+    elif kind == "clustered":
+        x = key_value(np.uint32(0xBF800000)
+                      + rng.integers(0, 100, size=(k, m)).astype(np.uint32))
+        x[:2] = np.array([-1000.0, 1000.0], F32)[:k, None]
+    elif kind == "specials":
+        bits = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                         0x7FC00000, 0xFFC00000, 0x7F800001, 0x3F800000],
+                        np.uint32)
+        pick = rng.integers(0, 2 * len(bits), size=(k, m))
+        x = np.where(pick < len(bits), bits[pick % len(bits)].view(F32), x)
+    elif kind == "top":
+        bits = (np.uint32(0x7FFFFF80)
+                + rng.integers(0, 128, size=(k, m))).astype(np.uint32)
+        bits[rng.uniform(size=(k, m)) < 0.1] = 0x7FFFFFFF
+        bits[rng.uniform(size=(k, m)) < 0.05] = 0xFFFFFFFF
+        x = np.where(rng.uniform(size=(k, m)) < 0.5, bits.view(F32), x)
+    return x
+
+
+COARSE_KINDS = ["cohort", "bucket", "narrow", "clustered", "specials", "top"]
+COARSE_SHAPES = [(bk, k) for bk in (16, 32, 64, 128)
+                 for k in (1, 2, 17, 65, 100, 127, 128) if k <= bk]
+
+
+@pytest.mark.parametrize("kind", COARSE_KINDS)
+@pytest.mark.parametrize("bk,k", COARSE_SHAPES)
+def test_coarse_keys_sort_exactly_where_the_check_passes(bk, k, kind):
+    """The coarse-key schedule (keys, the group's network on 32 bits, rows
+    from the low bits, the check) against the (key, row) pairs' network:
+    a column's check fails exactly where its coarse order differs from
+    the pairs' order, so wherever it passes the order and the gathered
+    values are the pairs', bit for bit; and after the warps that fail
+    sort again on pairs, every column is the pairs'."""
+    m = 256
+    v = load_group(coarse_values(k, m, kind, seed=bk * 1000 + k), bk)
+    xs_p, rw_p = pair_sort(v, k)
+    xs_c, rw_c, fails = coarse_parts(v, k)
+    same = (rw_c == rw_p).all((1, 2))
+    np.testing.assert_array_equal(fails, ~same)
+    np.testing.assert_array_equal(xs_c[same].view(np.uint32),
+                                  xs_p[same].view(np.uint32))
+    xs, rw, _ = coarse_sort(v, k)
+    np.testing.assert_array_equal(rw, rw_p)
+    np.testing.assert_array_equal(xs.view(np.uint32), xs_p.view(np.uint32))
+
+
+def test_coarse_keys_send_few_cohort_warps_and_no_narrow_ones_to_pairs():
+    """At the serve cohort's shape (K = 128, one 128-row block, 4 columns
+    a warp): its mix sends a few percent of warps to the pairs' sort, as
+    the kernel's exact-tile count should read; narrow data, whose range
+    the relative scale spreads over 32 bits, and bf16 values (16 bits of
+    key) none; clustered columns (a wide range, the rest in one bucket)
+    all."""
+    m = 4096
+    share = {}
+    for kind in ("cohort", "narrow", "clustered"):
+        v = load_group(coarse_values(128, m, kind, seed=7), 128)
+        share[kind] = float(coarse_sort(v, 128)[2].mean())
+    assert 0.005 < share["cohort"] < 0.06, share
+    assert share["narrow"] == 0.0 and share["clustered"] == 1.0, share
+    x = coarse_values(128, m, "cohort", seed=8)
+    bf16 = torch.from_numpy(x).bfloat16().float().numpy()
+    assert not coarse_sort(load_group(bf16, 128), 128)[2].any()
